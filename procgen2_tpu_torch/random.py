@@ -1,0 +1,149 @@
+"""Threefry-2x32 keys in torch, word for word the `jax.random` stream.
+
+The JAX package draws every level, reset and auto-reset from
+`jax.random` with `jax_threefry_partitionable` on (the default from jax
+0.5). This module reproduces that variant, so a trajectory of the port
+can be held against the JAX package given the same key:
+
+* `key(seed)`          -> [0, seed]              (prng.threefry_seed)
+* `split(k, n)[j]`     -> threefry(k, (0, j))    (prng._threefry_split_foldlike)
+* `fold_in(k, d)`      -> threefry(k, (0, d))    (prng._threefry_fold_in)
+* random bits[j]       -> o1 ^ o2 of threefry(k, (0, j))
+                          (prng._threefry_random_bits_partitionable)
+* `randint`            -> jax.random._randint's two-word span/multiplier trick
+* `uniform`            -> jax.random._uniform's mantissa bit trick
+
+A key is a tensor `[..., 2]` of 32-bit words held in int64 (torch's uint32
+lacks most ops, on CUDA especially); every leading dimension is a batch
+dimension, so a batch of keys takes the place of `vmap`. All arithmetic
+is integer, so CPU and CUDA give the same words.
+"""
+from __future__ import annotations
+
+import torch
+
+_M = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _add(a, b):
+    return (a + b) & _M
+
+
+def _rotl(x, r):
+    return ((x << r) | (x >> (32 - r))) & _M
+
+
+def _threefry2x32(k1, k2, x1, x2):
+    """Threefry-2x32 with 20 rounds on broadcastable int64 word tensors
+    (jax/_src/prng.py `_threefry2x32_lowering`)."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = _add(x1, ks[0])
+    x2 = _add(x2, ks[1])
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x1 = _add(x1, x2)
+            x2 = _rotl(x2, r) ^ x1
+        x1 = _add(x1, ks[(i + 1) % 3])
+        x2 = _add(_add(x2, ks[(i + 2) % 3]), i + 1)
+    return x1, x2
+
+
+def _hash_counts(k, shape):
+    """threefry(k, (0, j)) for j = 0..prod(shape)-1, reshaped to
+    k.shape[:-1] + shape (counts stay below 2**32, so the high word is 0)."""
+    shape = tuple(shape)
+    n = 1
+    for s in shape:
+        n *= s
+    counts = torch.arange(n, dtype=torch.int64, device=k.device).reshape(shape)
+    pad = (None,) * len(shape)
+    k1 = k[..., 0][(...,) + pad]
+    k2 = k[..., 1][(...,) + pad]
+    return _threefry2x32(k1, k2, torch.zeros_like(counts), counts)
+
+
+def _check(k):
+    if k.dtype != torch.int64 or k.shape[-1:] != (2,):
+        raise TypeError(f"a key is an int64 tensor [..., 2], got "
+                        f"{k.dtype} {tuple(k.shape)}")
+
+
+def key(seed: int, device=None) -> torch.Tensor:
+    """`jax.random.key(seed)` for a 32-bit seed: words [0, seed mod 2**32]."""
+    seed = int(seed)
+    if not -(2 ** 31) <= seed < 2 ** 31:
+        raise ValueError(f"seed must fit in int32, got {seed}")
+    return torch.tensor([0, seed & _M], dtype=torch.int64, device=device)
+
+
+def key_data(k: torch.Tensor) -> torch.Tensor:
+    """The key's words (`jax.random.key_data`): the key itself."""
+    _check(k)
+    return k
+
+
+def split(k: torch.Tensor, num=2) -> torch.Tensor:
+    """[..., 2] -> [..., *num, 2] (`jax.random.split`, batched)."""
+    _check(k)
+    shape = tuple(num) if isinstance(num, (tuple, list)) else (int(num),)
+    o1, o2 = _hash_counts(k, shape)
+    return torch.stack([o1, o2], dim=-1)
+
+
+def fold_in(k: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in`; `data` (int or int tensor, taken mod 2**32)
+    broadcasts against the key's batch dims."""
+    _check(k)
+    d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & _M
+    o1, o2 = _threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
+    return torch.stack([o1, o2], dim=-1)
+
+
+def _bits32(k, shape):
+    o1, o2 = _hash_counts(k, shape)
+    return o1 ^ o2
+
+
+def _batched(v, k, shape, dtype):
+    """minval/maxval: a number, or a tensor of the key's batch shape
+    (extended over the sample `shape`)."""
+    v = torch.as_tensor(v, dtype=dtype, device=k.device)
+    if v.ndim:
+        v = v.reshape(tuple(v.shape) + (1,) * len(shape))
+    return v
+
+
+def randint(k: torch.Tensor, shape=(), minval=0, maxval=1) -> torch.Tensor:
+    """`jax.random.randint(k, shape, minval, maxval)` with dtype int32:
+    out[..., *shape] in [minval, maxval) (minval where maxval <= minval)."""
+    _check(k)
+    shape = tuple(shape)
+    lo32, hi32 = -(2 ** 31), 2 ** 31 - 1
+    minval = _batched(minval, k, shape, torch.int64).clamp(lo32, hi32)
+    maxval = _batched(maxval, k, shape, torch.int64).clamp(lo32, hi32)
+    ks = split(k)
+    higher = _bits32(ks[..., 0, :], shape)
+    lower = _bits32(ks[..., 1, :], shape)
+    span = (maxval - minval) & _M
+    span = torch.where(maxval <= minval, torch.ones_like(span), span)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _M) % span
+    # (h % span) * mult can pass 2**63; int64 multiply wraps, and only the
+    # low 32 bits are kept, as uint32 arithmetic does
+    off = (((higher % span) * mult) & _M) + (lower % span)
+    off = (off & _M) % span
+    out = ((minval + off + 2 ** 31) & _M) - 2 ** 31  # int32 wrap-around add
+    return out.to(torch.int32)
+
+
+def uniform(k: torch.Tensor, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
+    """`jax.random.uniform(k, shape, float32, minval, maxval)`."""
+    _check(k)
+    shape = tuple(shape)
+    bits = _bits32(k, shape)
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = fbits.view(torch.float32) - 1.0
+    lo = _batched(minval, k, shape, torch.float32)
+    hi = _batched(maxval, k, shape, torch.float32)
+    return torch.maximum(lo, floats * (hi - lo) + lo)

@@ -1,0 +1,157 @@
+"""The plain torch version of the scene kernel
+(procgen2_tpu_torch/render/scene_kernel.py::scene_raw_reference) against
+the JAX package: against the Pallas kernel run in interpret mode on random
+inputs, and against coinrun's CPU scene path on real levels. Both bitwise.
+
+The CUDA kernel itself cannot run here; tests/test_torch_cuda.py and
+chip_smoke.py hold it against this plain version on the card."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from procgen2_tpu.games import coinrun as jcoin
+from procgen2_tpu.render import phases as jphases
+from procgen2_tpu.render import scene_kernel as jsk
+from procgen2_tpu_torch.games import coinrun as tcoin
+from procgen2_tpu_torch.render import scene_kernel as tsk
+from procgen2_tpu_torch.utils import convert
+
+OBS, QP = 64, 4
+
+
+def _bf16(a):
+    """numpy f32 -> (the same values rounded to bf16, as torch bf16)."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+
+
+def _random_raw(seed, N=4, GP=40, pad=8):
+    rng = np.random.default_rng(seed)
+    kinds, themes = (1, 2, 3, 4, 5), (-1, -1, 0, 1, -1)
+    TR, _, _ = jphases.phase_tables(jcoin.PPU, OBS, QP)
+    i32 = lambda a: np.asarray(a, np.int32)  # noqa: E731
+    gridp = rng.integers(0, 6, (N, GP, GP)).astype(np.int8)
+    # window origins reaching past both edges of the padded grid
+    ty0 = i32(rng.integers(-pad - 6, GP - pad - 8, N))
+    tx0 = i32(rng.integers(-pad - 6, GP - pad - 8, N))
+    jy, jx = i32(rng.integers(0, QP, N)), i32(rng.integers(0, QP, N))
+    bg_i, theme = i32(rng.integers(0, 3, N)), i32(rng.integers(0, 2, N))
+    bg_bank = _bf16(rng.integers(0, 256, (3, 3, GP, GP)))
+    a = rng.random((QP * QP, len(kinds), 1, OBS, OBS))
+    tile_bank = _bf16(np.concatenate(
+        [rng.random((QP * QP, len(kinds), 3, OBS, OBS)) * 255 * a, a], 2))
+
+    def group(V, P, K):
+        a = rng.random((V, 1, P, P))
+        bank = _bf16(np.concatenate([rng.random((V, 3, P, P)) * 255 * a, a], 1))
+        return (bank, i32(rng.integers(-1, V + 1, (N, K))),
+                rng.choice(np.float32([0, 1, 1, 0.5, 0.3]), (N, K)),
+                i32(rng.integers(-P - 2, OBS + 3, (N, K))),
+                i32(rng.integers(-P - 2, OBS + 3, (N, K))))
+
+    groups = [group(6, 8, 5), group(4, 12, 2)]
+    tr_tab = i32(TR[:, None, :])
+    return (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
+            kinds, themes, groups, OBS, QP, pad)
+
+
+def _to_jax(x):
+    if isinstance(x, torch.Tensor):
+        return jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(x)
+
+
+def _to_torch(x):
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reference_matches_pallas_interpret(seed):
+    args = _random_raw(seed)
+    (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
+     kinds, themes, groups, obs, qp, pad) = args
+    want = jsk.scene_tpu_raw(
+        *(_to_jax(a) for a in (gridp, ty0, tx0, jy, jx, bg_i, theme,
+                               bg_bank, tr_tab, tile_bank)),
+        kinds, themes, [tuple(_to_jax(x) for x in g) for g in groups],
+        obs, qp, pad, interpret=True)
+    got = tsk.scene_raw(
+        *(_to_torch(a) for a in (gridp, ty0, tx0, jy, jx, bg_i, theme,
+                                 bg_bank, tr_tab, tile_bank)),
+        kinds, themes, [tuple(_to_torch(x) for x in g) for g in groups],
+        obs, qp, pad)
+    assert got.dtype == torch.bfloat16 and got.shape == (4, 3, OBS, OBS)
+    np.testing.assert_array_equal(
+        np.asarray(want, np.float32).view(np.int32),
+        got.float().numpy().view(np.int32))
+
+
+def test_cpu_tensors_take_the_plain_path():
+    args = _random_raw(2, N=2)
+    targs = [_to_torch(a) if isinstance(a, np.ndarray) else a
+             for a in args[:10]]
+    groups = [tuple(_to_torch(x) for x in g) for g in args[12]]
+    before = tsk.scene_raw.launches
+    got = tsk.scene_raw(*targs, args[10], args[11], groups, *args[13:])
+    want = tsk.scene_raw_reference(*targs, args[10], args[11], groups,
+                                   *args[13:])
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert tsk.scene_raw.launches == before  # only kernel launches count
+
+
+def test_other_devices_raise():
+    args = _random_raw(3, N=1)
+    targs = [_to_torch(a).to("meta") if isinstance(a, np.ndarray)
+             else a.to("meta") for a in args[:10]]
+    with pytest.raises(ValueError):
+        tsk.scene_raw(*targs, args[10], args[11], [], *args[13:])
+
+
+@pytest.fixture(scope="module")
+def jax_bank():
+    gen = jax.jit(jax.vmap(functools.partial(jcoin.generate, jcoin.Config())))
+    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(7), i))(
+        jnp.arange(8, dtype=jnp.uint32))
+    return jax.tree.map(np.asarray, gen(keys))
+
+
+def _random_states(bank, seed):
+    """Game states on the bank's levels with the agent, mobs, poses and
+    animation frames spread over the whole level."""
+    rng = np.random.default_rng(seed)
+    n = bank.grid.shape[0]
+    f32 = np.float32
+    mob_pos = bank.mob_pos0.copy()
+    mob_pos[..., 0] += rng.uniform(-0.4, 0.4, mob_pos.shape[:2])
+    return jcoin.State(
+        level=bank,
+        pos=np.stack([rng.uniform(1.0, 63.0, n), rng.uniform(1.5, 63.0, n)],
+                     -1).astype(f32),
+        vel=rng.choice(f32([0.0, 0.005, -0.3, 0.3]), (n, 2)),
+        on_ground=rng.random(n) < 0.5,
+        face_forward=rng.random(n) < 0.5,
+        anim_t=rng.random(n).astype(f32),
+        mob_pos=mob_pos.astype(f32),
+        mob_vx=rng.choice(f32([-0.15, 0.15]), mob_pos.shape[:2]),
+        t=rng.integers(0, 20, n).astype(np.int32),
+        rng=np.zeros((n, 2), np.uint32),
+    )
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_coinrun_scene_matches_jax(jax_bank, seed):
+    """The port's coinrun scene render (CPU: the plain version) against
+    the JAX package's CPU scene path, which tests/test_scene_kernel.py
+    holds bitwise equal to the Pallas kernel."""
+    st = _random_states(jax_bank, seed)
+    jst = jax.tree.map(jnp.asarray,
+                       st.replace(rng=jax.random.wrap_key_data(st.rng)))
+    cfg = jcoin.Config()
+    want = np.asarray(jax.jit(functools.partial(jcoin._observe_scene, cfg))(jst))
+    got = tcoin._observe_scene(tcoin.Config(),
+                               convert.state(tcoin, st, "cpu"))
+    assert got.dtype == torch.uint8 and got.shape == (8, 3, OBS, OBS)
+    np.testing.assert_array_equal(want, got.numpy())
