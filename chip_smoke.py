@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the port's
 kernels from this checkout, holds each against its plain torch version,
-drives coinrun's main path at full width, and checks the result.
+drives the main paths of coinrun and bossfight at full width, and checks
+the results.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -9,10 +10,15 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases (any failure raises, so the exit code is non-zero and the final
 `ok` line is not printed):
   1. device: a CUDA card must be visible; prints nvidia-smi's name and
-     power limit; make("coinrun", device="cuda");
-  2. build: builds the scene kernel (nvcc, sm_90a) and prints the time;
-  3. kernel vs plain on random scene inputs at 4096 envs: bitwise equal;
-  4. main path: generate_bank(1024) -> reset(4096) -> lanes 0-2 placed on
+     power limit; make("coinrun") (on the card by default);
+  2. build: builds the scene kernel and the stamp kernel (nvcc, sm_90a,
+     one compiler process each, started together) and prints their times
+     and ptxas registers and spills;
+  3. kernels vs plain on random inputs at 4096 envs: the scene kernel on
+     coinrun's shapes, the stamp kernel on bossfight's four stamp groups
+     (out-of-range variants, scale 0, fractional scales, stamps off every
+     edge, overlaps): bitwise equal;
+  4. coinrun main path: generate_bank(1024) -> reset(4096) -> lanes 0-2 placed on
      the coin, a saw and lava -> 8 steps writing obs into a uint8
      [8, 4096, 64, 64, 3] buffer; the launch count shows the path ran the
      kernel; shapes, dtypes, rewards and obs are checked, and the coin lane
@@ -20,13 +26,25 @@ Phases (any failure raises, so the exit code is non-zero and the final
      the CPU through the port and must match exactly, auto-resets
      included; the scene kernel is then held against its plain version
      on the real scene inputs;
-  5. where the time goes: host wall time of each part of one env step,
-     and the device kernels and device time of two steps
+  5. where the time goes (coinrun): host wall time of each part of one
+     env step, and the device kernels and device time of two steps
      (torch.profiler);
-  6. prints the kernels' JSON line, then the `ok` line last.
+  6. bossfight main path: make("bossfight") -> generate_bank(1024) ->
+     reset(4096) -> lane 0's agent placed on the boss (death, -10) and
+     lane 1's boss in its last phase with its hit points gone (death, +10)
+     -> 8 steps writing obs into the uint8 buffer; the stamp kernel's
+     launch count, shapes, dtypes, rewards, both lanes' termination and
+     restart, live boss bullets and obs are checked; the first 8 envs are
+     re-run on the CPU and must match exactly at every step; the stamp
+     kernel is then held against its plain version on the real render
+     inputs;
+  7. where the time goes (bossfight), as in 5;
+  8. prints the kernels' JSON line (with each kernel's least possible
+     time on this card, `bound_ms`), then the `ok` line last.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import pathlib
@@ -40,13 +58,19 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
 import procgen2_tpu_torch as pt  # noqa: E402
 from procgen2_tpu_torch import random as prng  # noqa: E402
-from procgen2_tpu_torch.games import coinrun  # noqa: E402
-from procgen2_tpu_torch.render import scene_kernel  # noqa: E402
+from procgen2_tpu_torch.games import bossfight, coinrun  # noqa: E402
+from procgen2_tpu_torch.render import scene_kernel, stamp_kernel  # noqa: E402
 from procgen2_tpu_torch.utils import (bank_gather, tree_map,  # noqa: E402
                                       tree_select)
 
 NUM_LEVELS, NUM_ENVS, T = 1024, 4096, 8  # procgen2_tpu/tools/bench_cli.py:18
 CPU_ENVS = 8
+# H100 SXM data sheet peaks (at 700 W): device memory, and f32 outside the
+# tensor cores. The sheet's 67 TFLOP/s counts a fused multiply-add as two
+# operations; the kernels are built with --fmad=false and issue each
+# multiply and add on its own, so they can do at most half as many.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
 
 
 def log(msg):
@@ -72,6 +96,111 @@ def bitwise_diff(a, b):
     n = int((a.view(torch.int16) != b.view(torch.int16)).sum())
     err = float((a.float() - b.float()).abs().max())
     return n, err
+
+
+def tensor_bytes(*trees):
+    """Bytes of every tensor in (nested lists/tuples of) tensors."""
+    n = 0
+    for t in trees:
+        if isinstance(t, torch.Tensor):
+            n += t.numel() * t.element_size()
+        elif isinstance(t, (list, tuple)):
+            n += tensor_bytes(*t)
+    return n
+
+
+def stamp_blends(groups, obs):
+    """Number of (pixel, stamp) blends the groups' data needs: each live
+    slot blends over the part of its P x P patch inside the frame."""
+    n = 0
+    for bank, var, scale, r0, c0 in groups:
+        V, P = bank.shape[0], bank.shape[-1]
+        live = (scale != 0) & (var >= 0) & (var < V)
+
+        def span(x0):
+            x0 = x0.long().clamp(-P, obs)
+            return (x0 + P).clamp(max=obs) - x0.clamp(min=0)
+
+        n += int((live * span(r0).clamp(min=0) * span(c0).clamp(min=0)).sum())
+    return n
+
+
+def bound(nbytes, nops):
+    """Least time in ms the card could take: the larger of the bytes over
+    the memory rate and the f32 operations over the f32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# 11 f32 ops per stamp blend (4 texel * scale, 1 - a, 3 multiplies, 3 adds),
+# 7 per tile blend (1 - a, 3 multiplies, 3 adds)
+STAMP_OPS, TILE_OPS = 11, 7
+
+
+def distinct(idx, valid, size):
+    """Number of distinct values in idx[valid], all in [0, size)."""
+    used = torch.zeros(size, dtype=torch.bool, device=idx.device)
+    used[idx[valid]] = True
+    return int(used.sum())
+
+
+def scene_work(args):
+    """(bytes, f32 operations) that one scene_raw call needs on these
+    inputs. Bytes: every element the kernel reads, counted once, and the
+    output written once. Of the grid and the background bank that is only
+    the cells under some env's camera window, of the tile bank only the
+    texels some tile blend reads; the per-env inputs, tr_tab and the stamp
+    groups whole (the banks are at most 0.2 MB in all). Operations: the
+    tile and stamp blends this data needs."""
+    (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
+     kinds, themes, groups, obs, qp, pad) = args
+    N, GP, _ = gridp.shape
+    NB, dev = bg_bank.shape[0], gridp.device
+    tr = tr_tab.reshape(qp, obs).long()
+    py, px = jy.long().clamp(0, qp - 1), jx.long().clamp(0, qp - 1)
+    ys = ty0.long()[:, None] + pad + tr[py]
+    xs = tx0.long()[:, None] + pad + tr[px]
+    inb = (((ys >= 0) & (ys < GP))[:, :, None]
+           & ((xs >= 0) & (xs < GP))[:, None, :])           # [N, obs, obs]
+    cell = (ys.clamp(0, GP - 1)[:, :, None] * GP
+            + xs.clamp(0, GP - 1)[:, None, :])
+    ncell = torch.arange(N, device=dev)[:, None, None] * GP * GP + cell
+    b = bg_i.long()[:, None, None]
+    bg_ok = inb & (b >= 0) & (b < NB)
+    grid_cells = distinct(ncell, inb, N * GP * GP)
+    bg_cells = distinct(b.clamp(0, NB - 1) * GP * GP + cell, bg_ok,
+                        NB * GP * GP)
+    G = torch.where(inb, gridp.reshape(-1)[ncell].long(), 0)
+    npix = obs * obs
+    texel = ((py * qp + px)[:, None] * npix
+             + torch.arange(npix, device=dev)).expand(N, npix)
+    tiles = texels = 0
+    for k, th in zip(kinds, themes):
+        m = G == int(k)
+        if th >= 0:
+            m = m & (theme == int(th))[:, None, None]
+        tiles += int(m.sum())
+        texels += distinct(texel, m.reshape(N, npix), qp * qp * npix)
+    nbytes = (grid_cells * gridp.element_size()
+              + bg_cells * 3 * bg_bank.element_size()
+              + texels * 4 * tile_bank.element_size()
+              + tensor_bytes(ty0, tx0, jy, jx, bg_i, theme, tr_tab, groups)
+              + N * 3 * npix * 2)
+    return nbytes, TILE_OPS * tiles + STAMP_OPS * stamp_blends(groups, obs)
+
+
+def scene_bound(args):
+    """(bound_ms, bound_by) of one scene_raw call on these inputs."""
+    return bound(*scene_work(args))
+
+
+def stamp_bound(img, groups):
+    """(bound_ms, bound_by) of one stamp-kernel call on these inputs: the
+    frame and the groups read once (banks whole: at most 0.2 MB), the frame
+    written once; the stamp blends this data needs."""
+    nbytes = tensor_bytes(img, groups) + img.numel() * img.element_size()
+    return bound(nbytes, STAMP_OPS * stamp_blends(groups, img.shape[-1]))
 
 
 def random_scene(n, dev, seed=0):
@@ -100,19 +229,52 @@ def random_scene(n, dev, seed=0):
     a = rf((qp * qp, ne, 1, obs, obs))
     tile_bank = torch.cat([rf((qp * qp, ne, 3, obs, obs)) * 255 * a, a],
                           dim=2).to(torch.bfloat16)
-    scales = torch.tensor([0.0, 1.0, 1.0, 1.0, 0.5, 0.3], device=dev)
-
-    def group(V, P, K):
-        a = rf((V, 1, P, P))
-        bank = torch.cat([rf((V, 3, P, P)) * 255 * a, a],
-                         dim=1).to(torch.bfloat16)
-        return (bank, ri(-1, V + 1, (n, K)),
-                scales[ri(0, len(scales), (n, K)).long()].contiguous(),
-                ri(-P - 2, obs + 3, (n, K)), ri(-P - 2, obs + 3, (n, K)))
-
-    groups = [group(39, 8, 17), group(40, 12, 1)]
+    groups = [random_group(g, n, dev, 39, 8, 17, obs),
+              random_group(g, n, dev, 40, 12, 1, obs)]
     return (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, ST["tr_tab"],
             tile_bank, kinds, themes, groups, obs, qp, pad)
+
+
+def random_group(g, n, dev, V, P, K, obs):
+    """A random stamp group: a premultiplied bf16 bank [V, 4, P, P]; var in
+    [-1, V] (both ends out of range); scales 0, 1, 0.5 and 0.3; r0/c0 in
+    [-P - 2, obs + 2] (stamps off and across every edge); where K > 1,
+    slot 1 overlaps slot 0, two pixels down and right."""
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    a = torch.rand((V, 1, P, P), generator=g, device=dev)
+    bank = torch.cat([torch.rand((V, 3, P, P), generator=g, device=dev)
+                      * 255 * a, a], dim=1).to(torch.bfloat16)
+    scales = torch.tensor([0.0, 1.0, 1.0, 1.0, 0.5, 0.3], device=dev)
+    r0, c0 = ri(-P - 2, obs + 3, (n, K)), ri(-P - 2, obs + 3, (n, K))
+    if K > 1:
+        r0[:, 1] = r0[:, 0] + 2
+        c0[:, 1] = c0[:, 0] + 2
+    return (bank, ri(-1, V + 1, (n, K)),
+            scales[ri(0, len(scales), (n, K)).long()].contiguous(), r0, c0)
+
+
+def bossfight_group_shapes():
+    """(V, P, K) of bossfight's four stamp groups, in painter order
+    (bossfight._stamp_groups)."""
+    banks = bossfight._stamp_banks()
+    ks = {"barbb": bossfight.MAX_BARRIERS + bossfight.BB_CULL,
+          "bosshield": 1, "dmg": bossfight.NUM_EXPLOSIONS,
+          "abship": bossfight.AB_CULL + 1}
+    return [(banks[k].shape[0], banks[k].shape[-1], K) for k, K in ks.items()]
+
+
+def random_stamps(n, dev, seed=0):
+    """Random stamp-kernel inputs: a bf16 frame [n, 3, 64, 64] of whole
+    values in [0, 255] and bossfight's four stamp groups (random_group)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    img = torch.randint(0, 256, (n, 3, 64, 64), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.bfloat16)
+    return img, [random_group(g, n, dev, V, P, K, 64)
+                 for V, P, K in bossfight_group_shapes()]
 
 
 def kernel_vs_plain(args, iters):
@@ -127,6 +289,29 @@ def kernel_vs_plain(args, iters):
                              f"in {ndiff} values (max abs err {err})")
     ms = cuda_ms(lambda: scene_kernel.scene_raw(*args), iters)
     plain_ms = cuda_ms(lambda: scene_kernel.scene_raw_reference(*args), 3)
+    return err, ms, plain_ms
+
+
+def stamps_vs_plain(img, groups, iters):
+    """Bitwise check and times of the stamp kernel vs its plain version,
+    and one launch over all groups against one launch per group in turn.
+    These launches are not the main path's and are not counted there."""
+    got = stamp_kernel.composite(img, groups)
+    want = stamp_kernel.composite_reference(img, groups)
+    seq = img
+    for group in groups:
+        seq = stamp_kernel.composite(seq, [group])
+    torch.cuda.synchronize()
+    ndiff, err = bitwise_diff(got, want)
+    if ndiff:
+        raise AssertionError(f"stamp kernel differs from its plain version "
+                             f"in {ndiff} values (max abs err {err})")
+    if bitwise_diff(got, seq)[0]:
+        raise AssertionError("one stamp-kernel launch over all groups "
+                             "differs from one launch per group")
+    ms = cuda_ms(lambda: stamp_kernel.composite(img, groups), iters)
+    plain_ms = cuda_ms(lambda: stamp_kernel.composite_reference(img, groups),
+                       3)
     return err, ms, plain_ms
 
 
@@ -158,6 +343,23 @@ def place_on_hazards(gs, n):
     return dataclasses.replace(gs, pos=pos, vel=vel), lanes
 
 
+def place_boss_deaths(gs):
+    """Of a bossfight State: lane 0's agent on its boss (contact: -10 on
+    the first sub-step), and lane 1's boss in its last phase (5) with no
+    hit points left and its damage show over, mid-phase so that no
+    phase-start re-roll restores them (+10 on the first sub-step).
+    Returns (state, lanes)."""
+    pos, phase_index = gs.pos.clone(), gs.phase_index.clone()
+    phase_timer, hp = gs.phase_timer.clone(), gs.hp.clone()
+    damage_timer = gs.damage_timer.clone()
+    pos[0] = gs.boss_pos[0]
+    phase_index[1], phase_timer[1], hp[1] = 5, 1.0, 0
+    damage_timer[1] = bossfight.DAMAGE_TIME
+    return dataclasses.replace(
+        gs, pos=pos, phase_index=phase_index, phase_timer=phase_timer, hp=hp,
+        damage_timer=damage_timer), [0, 1]
+
+
 def wall_ms(fn, iters=5):
     """Mean host wall time of fn() in ms, device synchronised, after one
     warm-up call."""
@@ -170,41 +372,37 @@ def wall_ms(fn, iters=5):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def breakdown(env, bank, state, action, obs_buf):
+def breakdown(env, bank, state, action, obs_buf, render_parts):
     """Where one env step's time goes: host wall ms of each part of
-    `Environment.step` on the same state, then the device kernels and
-    summed device time of two whole steps under torch.profiler."""
-    cfg, gs, n_levels = env.cfg, state.game, NUM_LEVELS
+    `Environment.step` on the same state (the render's parts from
+    `render_parts`), then the device kernels and summed device time of two
+    whole steps under torch.profiler."""
+    game, cfg, gs, n_levels = env.game, env.cfg, state.game, NUM_LEVELS
     done = torch.zeros_like(state.ep_length, dtype=torch.bool)
     done[::7] = True
     k = prng.split(state.rng, 3)
-    inputs = coinrun._scene_inputs(cfg, gs)
-    img = scene_kernel.scene_raw(*inputs)
-    planar = coinrun._observe_scene(cfg, gs)
+    planar = game.observe_batch(cfg, gs)
 
     def auto_reset():
         kk = prng.split(state.rng, 3)
         idx = prng.randint(kk[:, 1], (), 0, n_levels)
-        fresh = coinrun.reset(cfg, bank_gather(bank, idx.long()), kk[:, 2])
+        fresh = game.reset(cfg, bank_gather(bank, idx.long()), kk[:, 2])
         return tree_select(done, fresh, gs)
 
     parts = [
         ("env.step (whole step, render included)",
          lambda: env.step(bank, state, action)),
         ("game step (physics, 4 sub-steps)",
-         lambda: coinrun.step(cfg, gs, action)),
+         lambda: game.step(cfg, gs, action)),
         ("auto-reset: split + randint + gather + reset + select", auto_reset),
         ("  of which one randint draw",
          lambda: prng.randint(k[:, 1], (), 0, n_levels)),
-        ("scene inputs (coinrun._scene_inputs)",
-         lambda: coinrun._scene_inputs(cfg, gs)),
-        ("scene kernel (scene_raw)", lambda: scene_kernel.scene_raw(*inputs)),
-        ("round / clip / uint8",
-         lambda: torch.clamp(torch.round(img), 0, 255).to(torch.uint8)),
+        *render_parts,
         ("hwc copy into the obs buffer",
          lambda: obs_buf[0].copy_(planar.permute(0, 2, 3, 1))),
     ]
-    log(f"breakdown at {NUM_ENVS} envs (host wall ms per call, mean of 5):")
+    log(f"{game.NAME} breakdown at {NUM_ENVS} envs (host wall ms per call, "
+        "mean of 5):")
     for name, fn in parts:
         log(f"  {name}: {wall_ms(fn):.3f} ms")
 
@@ -220,11 +418,11 @@ def breakdown(env, bank, state, action, obs_buf):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if kernels:
         dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-        log(f"profiler, 2 env steps: {len(kernels)} device kernels, "
-            f"{dev_ms:.3f} ms summed device time")
+        log(f"{game.NAME} profiler, 2 env steps: {len(kernels)} device "
+            f"kernels, {dev_ms:.3f} ms summed device time")
     else:
-        log("profiler, 2 env steps: no device events (device time not "
-            "measured)")
+        log(f"{game.NAME} profiler, 2 env steps: no device events (device "
+            "time not measured)")
 
 
 def same_tree(a, b, what):
@@ -236,59 +434,31 @@ def same_tree(a, b, what):
                              f"shapes {bad}")
 
 
-def main():
-    # ---- 1. device ----
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch sees no CUDA device")
-    env = pt.make("coinrun", device="cuda")  # the documented entry point
-    dev = env.device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(smi)  # the card's name and power limit, as nvidia-smi prints them
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+def make_bank(env):
+    """generate_bank(NUM_LEVELS) twice from key(0): (bank, first call s,
+    second call s)."""
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bank = env.generate_bank(pt.random.key(0, env.device), NUM_LEVELS)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"{env.game.NAME} generate_bank({NUM_LEVELS}): first call "
+        f"{times[0]:.3f} s, second {times[1]:.3f} s -> "
+        f"{NUM_LEVELS / times[1]:.1f} levels/s")
+    return bank
 
-    # ---- 2. build ----
-    rec = scene_kernel.build()
-    log(f"build: scene_kernel {rec['seconds']:.1f} s "
-        f"({'cached' if rec['cached'] else 'nvcc'})")
-    for line in rec["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
 
-    # ---- 3. kernel vs plain, random inputs ----
-    err_r, ms_r, plain_r = kernel_vs_plain(random_scene(NUM_ENVS, dev), 20)
-    log(f"scene kernel vs plain, random inputs N={NUM_ENVS}: bitwise equal; "
-        f"kernel {ms_r:.4f} ms, plain {plain_r:.4f} ms")
-
-    # ---- 4. main path ----
-    key = pt.random.key
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bank = env.generate_bank(key(0, env.device), NUM_LEVELS)
-    torch.cuda.synchronize()
-    gen_first = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    bank = env.generate_bank(key(0, env.device), NUM_LEVELS)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    log(f"generate_bank({NUM_LEVELS}): first call {gen_first:.3f} s, "
-        f"second {gen_s:.3f} s -> {NUM_LEVELS / gen_s:.1f} levels/s")
-
-    g = torch.Generator(device=dev)
-    g.manual_seed(2)
-    actions = torch.randint(0, coinrun.NUM_ACTIONS, (T, NUM_ENVS),
-                            generator=g, device=dev, dtype=torch.int32)
-    obs_buf = torch.empty((T, NUM_ENVS, 64, 64, 3), dtype=torch.uint8,
-                          device=dev)
-
+def drive(env, bank, actions, obs_buf, place, counter):
+    """The main path, twice: reset(NUM_ENVS), `place` the special lanes,
+    T steps writing obs into `obs_buf`. The first run warms up; `counter`
+    (a kernel wrapper) is set to 0 just before the second and read just
+    after. Returns ([state after each step], [(reward, done)], lanes,
+    launches)."""
     def run():
-        """reset, hazard lanes, T steps; returns ([state after each step],
-        [(reward, done)], hazard lanes, step seconds)."""
-        state, ts = env.reset(bank, key(1, env.device), NUM_ENVS)
-        gs, lanes = place_on_hazards(state.game, CPU_ENVS)
+        state, _ = env.reset(bank, pt.random.key(1, env.device), NUM_ENVS)
+        gs, lanes = place(state.game)
         state = dataclasses.replace(state, game=gs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -301,19 +471,23 @@ def main():
         torch.cuda.synchronize()
         return states, out, lanes, time.perf_counter() - t0
 
-    run()  # warm-up (allocator, caches); its launches are not counted
+    run()
     torch.cuda.synchronize()
-    scene_kernel.scene_raw.launches = 0
+    counter.launches = 0
     states, out, lanes, step_s = run()
-    launches = scene_kernel.scene_raw.launches
-    state = states[-1]
-    log(f"main path: {T} steps x {NUM_ENVS} envs in {step_s:.4f} s -> "
-        f"{T * NUM_ENVS / step_s:.1f} env-steps/s (obs written to the "
-        f"buffer); scene kernel launches {launches}")
+    launches = counter.launches
+    log(f"{env.game.NAME} main path: {T} steps x {NUM_ENVS} envs in "
+        f"{step_s:.4f} s -> {T * NUM_ENVS / step_s:.1f} env-steps/s (obs "
+        f"written to the buffer); kernel launches {launches}")
     if launches < T + 1:
-        raise AssertionError(f"the main path launched the scene kernel "
-                             f"{launches} times, expected >= {T + 1}")
+        raise AssertionError(f"the {env.game.NAME} main path launched its "
+                             f"kernel {launches} times, expected >= {T + 1}")
+    return states, out, lanes, launches
 
+
+def check_outputs(obs_buf, out, allowed):
+    """Shapes, dtypes and reward values of a main-path run, and no
+    constant frame. Returns (rewards [T, N], dones [T, N])."""
     rewards = torch.stack([r for r, _ in out])
     dones = torch.stack([d for _, d in out])
     if obs_buf.shape != (T, NUM_ENVS, 64, 64, 3) or obs_buf.dtype != torch.uint8:
@@ -322,13 +496,66 @@ def main():
         raise AssertionError("reward/termination dtypes")
     if not bool(torch.isfinite(rewards).all()):
         raise AssertionError("non-finite reward")
-    if not bool(((rewards == 0) | (rewards == 10)).all()):
-        raise AssertionError("reward outside {0, 10}")
-    if int(obs_buf.amax()) == int(obs_buf.amin()):
-        raise AssertionError("obs are constant")
+    if not bool(torch.isin(rewards, torch.tensor(
+            allowed, dtype=torch.float32, device=rewards.device)).all()):
+        raise AssertionError(f"reward outside {allowed}")
     per_frame = obs_buf.reshape(T * NUM_ENVS, -1).float().std(dim=1)
     if bool((per_frame == 0).any()):
         raise AssertionError("a frame is constant")
+    return rewards, dones
+
+
+def cpu_rerun(game, bank, actions, obs_buf, states, out, place, lanes):
+    """The first CPU_ENVS envs through the port on the CPU, from the same
+    keys and placement: bank, states, rewards, terminations and obs must
+    be identical at every step, auto-resets included."""
+    cenv = pt.make(game, device="cpu")
+    cbank = cenv.generate_bank(pt.random.key(0), NUM_LEVELS)
+    same_tree(bank, cbank, f"{game} level bank")
+    cstate, _ = cenv.reset(cbank, pt.random.key(1), CPU_ENVS)
+    cgs, clanes = place(cstate.game)
+    if clanes != lanes:
+        raise AssertionError(f"placed lanes differ: CPU {clanes}, GPU {lanes}")
+    cstate = dataclasses.replace(cstate, game=cgs)
+    for t in range(T):
+        cstate, cts = cenv.step(cbank, cstate, actions[t, :CPU_ENVS].cpu())
+        if not torch.equal(cts.obs, obs_buf[t, :CPU_ENVS].cpu()):
+            raise AssertionError(f"{game} step {t}: CPU and GPU obs differ")
+        if not (torch.equal(cts.reward, out[t][0][:CPU_ENVS].cpu())
+                and torch.equal(cts.terminated, out[t][1][:CPU_ENVS].cpu())):
+            raise AssertionError(f"{game} step {t}: CPU and GPU rewards differ")
+        same_tree(tree_map(lambda x: x[:CPU_ENVS], states[t]), cstate,
+                  f"{game} step {t}: env state")
+
+
+def build_kernels():
+    """Build both kernels from this checkout, one nvcc process each,
+    started together; print their times and ptxas registers/spills."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        recs = list(pool.map(lambda m: m.build(), (scene_kernel, stamp_kernel)))
+    for rec in recs:
+        log(f"build: {rec['name']} {rec['seconds']:.1f} s "
+            f"({'cached' if rec['cached'] else 'nvcc'})")
+        for line in rec["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+
+
+def coinrun_path(actions):
+    """Coinrun's main path, its checks, the CPU re-run, the scene kernel
+    against its plain version on the real inputs, and the breakdown.
+    Returns the kernel's JSON entry (without the random-input numbers)."""
+    env = pt.make("coinrun")  # the documented entry point: on the card
+    bank = make_bank(env)
+    obs_buf = torch.empty((T, NUM_ENVS, 64, 64, 3), dtype=torch.uint8,
+                          device=env.device)
+
+    def place(gs):
+        return place_on_hazards(gs, CPU_ENVS)
+
+    states, out, lanes, launches = drive(env, bank, actions, obs_buf, place,
+                                         scene_kernel.scene_raw)
+    rewards, dones = check_outputs(obs_buf, out, (0.0, 10.0))
     # the coin lane ends its episode on step 0 and restarts from the bank
     if not (bool(dones[0, 0]) and float(rewards[0, 0]) == 10.0
             and int(states[0].game.t[0]) == 0
@@ -336,55 +563,150 @@ def main():
         raise AssertionError("the lane placed on its coin did not end its "
                              "episode and restart on step 0")
     hit = [i for i in lanes if bool(dones[:, i].any())]
-    log(f"checks: obs {tuple(obs_buf.shape)} uint8 mean "
+    log(f"coinrun checks: obs {tuple(obs_buf.shape)} uint8 mean "
         f"{float(obs_buf.float().mean()):.3f}; rewards of 10: "
         f"{int((rewards == 10).sum())}; terminations: {int(dones.sum())}; "
         f"hazard lanes {lanes}, of which terminated {hit}")
-
-    # first CPU_ENVS envs through the port on the CPU: identical, auto-
-    # resets included
-    cpu = torch.device("cpu")
-    cenv = pt.make("coinrun", device=cpu)
-    cbank = cenv.generate_bank(key(0), NUM_LEVELS)
-    same_tree(bank, cbank, "level bank")
-    cstate, _ = cenv.reset(cbank, key(1), CPU_ENVS)
-    cgs, clanes = place_on_hazards(cstate.game, CPU_ENVS)
-    if clanes != lanes:
-        raise AssertionError(f"hazard lanes differ: CPU {clanes}, GPU {lanes}")
-    cstate = dataclasses.replace(cstate, game=cgs)
-    for t in range(T):
-        cstate, cts = cenv.step(cbank, cstate, actions[t, :CPU_ENVS].cpu())
-        if not torch.equal(cts.obs, obs_buf[t, :CPU_ENVS].cpu()):
-            raise AssertionError(f"step {t}: CPU and GPU obs differ")
-        if not (torch.equal(cts.reward, out[t][0][:CPU_ENVS].cpu())
-                and torch.equal(cts.terminated, out[t][1][:CPU_ENVS].cpu())):
-            raise AssertionError(f"step {t}: CPU and GPU rewards differ")
-        same_tree(tree_map(lambda x: x[:CPU_ENVS], states[t]), cstate,
-                  f"step {t}: env state")
-    log(f"CPU re-run of the first {CPU_ENVS} envs: bank, states, rewards, "
-        f"terminations and obs identical at every step "
+    cpu_rerun("coinrun", bank, actions, obs_buf, states, out, place, lanes)
+    log(f"coinrun CPU re-run of the first {CPU_ENVS} envs: bank, states, "
+        f"rewards, terminations and obs identical at every step "
         f"({int(dones[:, :CPU_ENVS].sum())} auto-resets)")
 
-    # the kernel against its plain version on the real scene inputs
-    err_c, ms_c, plain_c = kernel_vs_plain(
-        coinrun._scene_inputs(env.cfg, state.game), 20)
+    state = states[-1]
+    inputs = coinrun._scene_inputs(env.cfg, state.game)
+    err, ms, plain_ms = kernel_vs_plain(inputs, 20)
+    bound_ms, bound_by = scene_bound(inputs)
     log(f"scene kernel vs plain, coinrun inputs N={NUM_ENVS}: bitwise equal; "
-        f"kernel {ms_c:.4f} ms, plain {plain_c:.4f} ms")
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms ({bound_by})")
 
-    # ---- 5. where the time goes ----
-    breakdown(env, bank, state, actions[-1], obs_buf)
+    img = scene_kernel.scene_raw(*inputs)
+    breakdown(env, bank, state, actions[-1], obs_buf, [
+        ("scene inputs (coinrun._scene_inputs)",
+         lambda: coinrun._scene_inputs(env.cfg, state.game)),
+        ("scene kernel (scene_raw)", lambda: scene_kernel.scene_raw(*inputs)),
+        ("round / clip / uint8",
+         lambda: torch.clamp(torch.round(img), 0, 255).to(torch.uint8)),
+    ])
+    return dict(name="scene_raw", route="cuda",
+                source="procgen2_tpu_torch/render/csrc/scene_kernel.cu",
+                replaces="procgen2_tpu/render/scene_kernel.py:206",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
-    # ---- 6. result ----
-    log(json.dumps({"kernels": [{
-        "name": "scene_raw",
-        "route": "cuda",
-        "source": "procgen2_tpu_torch/render/csrc/scene_kernel.cu",
-        "replaces": "procgen2_tpu/render/scene_kernel.py:86",
-        "launches": launches,
-        "max_abs_err": max(err_r, err_c),
-        "ms": ms_c,
-        "plain_ms": plain_c,
-    }]}))
+
+def bossfight_path(actions):
+    """Bossfight's main path, its checks, the CPU re-run, the stamp kernel
+    against its plain version on the real render inputs, and the
+    breakdown. Returns the kernel's JSON entry."""
+    env = pt.make("bossfight")
+    bank = make_bank(env)
+    obs_buf = torch.empty((T, NUM_ENVS, 64, 64, 3), dtype=torch.uint8,
+                          device=env.device)
+
+    states, out, lanes, launches = drive(env, bank, actions, obs_buf,
+                                         place_boss_deaths,
+                                         stamp_kernel.composite)
+    rewards, dones = check_outputs(obs_buf, out, (-10.0, 0.0, 10.0))
+    # both lanes end their episodes on step 0 and restart from the bank
+    g0 = states[0].game
+    for lane, want in ((0, -10.0), (1, 10.0)):
+        if not (bool(dones[0, lane]) and float(rewards[0, lane]) == want
+                and int(g0.t[lane]) == 0 and int(states[0].ep_length[lane]) == 0
+                and int(g0.phase_index[lane]) == 0
+                and int(g0.hp[lane]) == bossfight.BOSS_HP):
+            raise AssertionError(f"bossfight lane {lane} did not end its "
+                                 f"episode with {want} and restart on step 0")
+    g = states[-1].game
+    live = (bossfight._window(g.bb_next, g.bb_num, bossfight.NUM_B_BULLETS)
+            & (g.bb_frame == 0.0))
+    # from a reset, weapons 1 and 3 (half the envs) fire first within 8
+    # steps (at attack_timer 5 and 4); weapons 0 and 2 fire at 8 and 10
+    frac = float(live.any(1).float().mean())
+    if frac < 0.4:
+        raise AssertionError(f"boss bullets live in only {frac:.3f} of the "
+                             "envs after 8 steps")
+    log(f"bossfight checks: obs {tuple(obs_buf.shape)} uint8 mean "
+        f"{float(obs_buf.float().mean()):.3f}; rewards of -10: "
+        f"{int((rewards == -10).sum())}, of 10: {int((rewards == 10).sum())}; "
+        f"terminations: {int(dones.sum())}; lanes 0 and 1 ended and "
+        f"restarted on step 0; envs with live boss bullets after step {T}: "
+        f"{int(live.any(1).sum())} of {NUM_ENVS} ({int(live.sum())} bullets)")
+    cpu_rerun("bossfight", bank, actions, obs_buf, states, out,
+              place_boss_deaths, lanes)
+    log(f"bossfight CPU re-run of the first {CPU_ENVS} envs: bank, states, "
+        f"rewards, terminations and obs identical at every step "
+        f"({int(dones[:, :CPU_ENVS].sum())} auto-resets)")
+
+    gs = states[-1].game
+    img, groups = bossfight._stamp_groups(env.cfg, gs)
+    err, ms, plain_ms = stamps_vs_plain(img, groups, 20)
+    bound_ms, bound_by = stamp_bound(img, groups)
+    log(f"stamp kernel vs plain, bossfight inputs N={NUM_ENVS}: bitwise "
+        f"equal, one launch = one per group; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); stamp "
+        f"blends {stamp_blends(groups, 64)}")
+
+    out_img = stamp_kernel.composite(img, groups)
+    breakdown(env, bank, states[-1], actions[-1], obs_buf, [
+        ("render inputs (bossfight._stamp_groups: _cull_alive, _r0c0)",
+         lambda: bossfight._stamp_groups(env.cfg, gs)),
+        ("stamp kernel (composite, 4 groups)",
+         lambda: stamp_kernel.composite(img, groups)),
+        ("round / clip / uint8",
+         lambda: torch.clamp(torch.round(out_img), 0, 255).to(torch.uint8)),
+    ])
+    return dict(name="composite", route="cuda",
+                source="procgen2_tpu_torch/render/csrc/stamp_kernel.cu",
+                replaces="procgen2_tpu/render/stamp_kernel.py:182",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def main():
+    # ---- 1. device ----
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch sees no CUDA device")
+    dev = pt.make("coinrun").device  # on the card by default
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(smi)  # the card's name and power limit, as nvidia-smi prints them
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+
+    # ---- 2. build ----
+    build_kernels()
+
+    # ---- 3. kernels vs plain, random inputs ----
+    scene_args = random_scene(NUM_ENVS, dev)
+    err_r, ms_r, plain_r = kernel_vs_plain(scene_args, 20)
+    bound_r, by_r = scene_bound(scene_args)
+    log(f"scene kernel vs plain, random inputs N={NUM_ENVS}: bitwise equal; "
+        f"kernel {ms_r:.4f} ms, plain {plain_r:.4f} ms, bound {bound_r:.4f} "
+        f"ms ({by_r})")
+    img, groups = random_stamps(NUM_ENVS, dev)
+    serr_r, sms_r, splain_r = stamps_vs_plain(img, groups, 20)
+    sbound_r, sby_r = stamp_bound(img, groups)
+    log(f"stamp kernel vs plain, random bossfight-shaped inputs N={NUM_ENVS}: "
+        f"bitwise equal, one launch = one per group; kernel {sms_r:.4f} ms, "
+        f"plain {splain_r:.4f} ms, bound {sbound_r:.4f} ms ({sby_r})")
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    actions = torch.randint(0, coinrun.NUM_ACTIONS, (T, NUM_ENVS),
+                            generator=g, device=dev, dtype=torch.int32)
+
+    # ---- 4, 5. coinrun: main path, checks, breakdown ----
+    scene = coinrun_path(actions)
+    # ---- 6, 7. bossfight: main path, checks, breakdown ----
+    stamp = bossfight_path(actions)
+
+    # ---- 8. result ----
+    scene["max_abs_err"] = max(scene["max_abs_err"], err_r)
+    stamp["max_abs_err"] = max(stamp["max_abs_err"], serr_r)
+    log(json.dumps({"kernels": [scene, stamp]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

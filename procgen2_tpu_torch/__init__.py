@@ -2,13 +2,14 @@
 PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
 
 The port is a package beside the JAX one, which stays as its reference.
-It never imports jax or `procgen2_tpu` as a package: the numpy-only asset
-modules are loaded by path (render/_shared.py). Games ported so far: see
-GAMES.
+It never imports jax or anything of `procgen2_tpu`, and keeps its own
+copies of the numpy asset modules (render/atlas.py, render/phases.py).
+Games ported so far: see GAMES. Entry points run on the card unless the
+caller asks for the CPU.
 
 Quick start:
     import procgen2_tpu_torch as pt
-    env = pt.make("coinrun", device="cuda")
+    env = pt.make("coinrun")  # device="cuda" by default
     bank = env.generate_bank(pt.random.key(0, env.device), num_levels=1024)
     state, ts = env.reset(bank, pt.random.key(1, env.device), num_envs=4096)
     state, ts = env.step(bank, state, actions)  # ts.obs uint8 [4096, 64, 64, 3]
@@ -24,13 +25,14 @@ from .core.env import Environment, EnvState, TimeStep
 
 __version__ = "0.1.0"
 
-GAMES = ("coinrun",)
+GAMES = ("coinrun", "bossfight")
 
 
-def make(game: str, device, **config) -> Environment:
-    """Environment for `game` on `device` ("cpu", "cuda", "cuda:1", ...);
-    config kwargs go to the game's Config, `obs_format` ("hwc" or "chw")
-    to the Environment. A CUDA device must exist: nothing falls back."""
+def make(game: str, device="cuda", **config) -> Environment:
+    """Environment for `game` on `device` ("cuda", the default, "cuda:1",
+    "cpu", ...); config kwargs go to the game's Config, `obs_format`
+    ("hwc" or "chw") to the Environment. A CUDA device must exist unless
+    the caller asks for the CPU: nothing falls back."""
     if game not in GAMES:
         raise ValueError(f"game {game!r} is not ported to PyTorch yet; "
                          f"ported so far: {GAMES}")

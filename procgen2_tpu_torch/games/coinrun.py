@@ -30,8 +30,8 @@ from ..physics.tiles import (
 )
 from ..render import compositor as C
 from ..render import scene_kernel
-from ..render._shared import atlas as atlas_lib
-from ..render._shared import phases as phases_lib
+from ..render import atlas as atlas_lib
+from ..render import phases as phases_lib
 
 NAME = "coinrun"
 NUM_ACTIONS = 15
@@ -125,7 +125,7 @@ class State:
 
 
 # ---------------------------------------------------------------------------
-# Assets (numpy, built by the JAX package's numpy-only asset modules)
+# Assets (numpy, built by the port's asset modules)
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)

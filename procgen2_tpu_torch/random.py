@@ -11,7 +11,9 @@ can be held against the JAX package given the same key:
 * random bits[j]       -> o1 ^ o2 of threefry(k, (0, j))
                           (prng._threefry_random_bits_partitionable)
 * `randint`            -> jax.random._randint's two-word span/multiplier trick
-* `uniform`            -> jax.random._uniform's mantissa bit trick
+* `uniform`            -> jax.random._uniform's mantissa bit trick, with
+                          `floats * (hi - lo) + lo` rounded once, as
+                          XLA CPU's fused multiply-add does (`_fma32`)
 
 A key is a tensor `[..., 2]` of 32-bit words held in int64 (torch's uint32
 lacks most ops, on CUDA especially); every leading dimension is a batch
@@ -137,8 +139,22 @@ def randint(k: torch.Tensor, shape=(), minval=0, maxval=1) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+def _fma32(a, b, c) -> torch.Tensor:
+    """f32 `a * b + c` rounded once, as XLA CPU computes it: it contracts
+    a multiply feeding an add into one fused multiply-add. The product of
+    two f32 values is exact in float64, so the sum is taken there and
+    rounded to f32 once. Two separate torch ops, so the card computes the
+    same value. a, b, c: f32 tensors or numbers (broadcast)."""
+    def f64(x):
+        return (x.double() if isinstance(x, torch.Tensor)
+                else float(torch.tensor(x, dtype=torch.float32)))
+    return (f64(a) * f64(b) + f64(c)).to(torch.float32)
+
+
 def uniform(k: torch.Tensor, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
-    """`jax.random.uniform(k, shape, float32, minval, maxval)`."""
+    """`jax.random.uniform(k, shape, float32, minval, maxval)` as it runs on
+    XLA CPU: `floats * (maxval - minval) + minval` is one fused multiply-add
+    there (`_fma32`)."""
     _check(k)
     shape = tuple(shape)
     bits = _bits32(k, shape)
@@ -146,4 +162,4 @@ def uniform(k: torch.Tensor, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
     floats = fbits.view(torch.float32) - 1.0
     lo = _batched(minval, k, shape, torch.float32)
     hi = _batched(maxval, k, shape, torch.float32)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return torch.maximum(lo, _fma32(floats, hi - lo, lo))

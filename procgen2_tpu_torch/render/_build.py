@@ -2,9 +2,9 @@
 
 Each `csrc/*.cu` file has a plain C entry point. It is compiled with
 `nvcc` for sm_90a into a shared library under `<checkout>/.torch_ext_build/`
-(listed in .gitignore) at first use, named by a hash of the source and
-the flags, and loaded with ctypes: no PyTorch headers are compiled, so a
-build takes seconds. Nothing here runs at import time, and a failed build
+(listed in .gitignore) at first use, named by a hash of the source, of
+every local header it includes and of the flags, and loaded with ctypes:
+no PyTorch headers are compiled, so a build takes seconds. Nothing here runs at import time, and a failed build
 raises with the compiler's output.
 """
 from __future__ import annotations
@@ -14,6 +14,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -38,12 +39,34 @@ def _nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: pathlib.Path) -> list:
+    """`src` and every header it includes with `#include "..."`, found
+    next to the file that includes it, recursively (each once, in order)."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            inc = path.parent / name
+            if not inc.is_file():
+                raise FileNotFoundError(f"{path} includes {name}, not found")
+            todo.append(inc)
+    return seen
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str):
     """Build (if needed) and load `csrc/<name>.cu`. Returns
     (ctypes.CDLL, build record dict with seconds and compiler output)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     lib_path = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     record = {"name": name, "library": str(lib_path), "seconds": 0.0,
               "log": "", "cached": lib_path.is_file()}

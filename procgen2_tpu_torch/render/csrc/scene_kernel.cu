@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel procgen2_tpu/render/scene_kernel.py
 // `_scene_kernel_raw` (launched by `_scene_raw`), with its stamp loop
-// `_blend_stamps_ref` as the device function `blend_stamps` below.
+// `_blend_stamps_ref` as the device function `blend_stamps` (stamps.cuh,
+// shared with the stamp-over-frame kernel).
 //
 // What it computes, per env e and output pixel (r, c):
 //   1. the kind field and background under the pixel, read from the
@@ -38,25 +39,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stamps.cuh"
+
 namespace {
 
-constexpr int kMaxGroups = 4;
+using stamps::StampGroups;
+using stamps::blend;
+using stamps::blend_stamps;
+using stamps::clampi;
+using stamps::ld;
+
 constexpr int kMaxEntries = 32;
 constexpr int kThreads = 256;
-
-struct StampGroup {
-  const __nv_bfloat16* bank;  // premultiplied [V, 4, P, P]
-  const int32_t* var;         // [N, K]
-  const float* scale;         // [N, K]
-  const int32_t* r0;          // [N, K]
-  const int32_t* c0;          // [N, K]
-  int V, P, K;
-};
-
-struct StampGroups {
-  StampGroup g[kMaxGroups];
-  int n;
-};
 
 // The tile entries' kinds and themes travel as kernel parameters.
 struct TileEntries {
@@ -64,50 +58,6 @@ struct TileEntries {
   int32_t theme[kMaxEntries];  // -1: every theme
   int n;
 };
-
-__device__ __forceinline__ float bf(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// frame = frame * (1 - a) + rgb, each op rounded to bf16
-__device__ __forceinline__ void blend(float f[3], const float rgb[3],
-                                      float a) {
-  const float om = bf(__fsub_rn(1.0f, a));
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    f[ch] = bf(__fadd_rn(bf(__fmul_rn(f[ch], om)), rgb[ch]));
-  }
-}
-
-// Painter-order stamps of one group over one pixel (B2; shared with the
-// stamp-over-frame kernel when that is ported).
-__device__ __forceinline__ void blend_stamps(float f[3],
-                                             const StampGroup& g, int e,
-                                             int r, int c, int obs) {
-  const size_t row = (size_t)e * g.K;
-  const int pp = g.P * g.P;
-  for (int k = 0; k < g.K; ++k) {
-    const float s = g.scale[row + k];
-    const int v = g.var[row + k];
-    if (s == 0.0f || v < 0 || v >= g.V) continue;
-    const int dr = r - clampi(g.r0[row + k], -g.P, obs);
-    const int dc = c - clampi(g.c0[row + k], -g.P, obs);
-    if (dr < 0 || dr >= g.P || dc < 0 || dc >= g.P) continue;
-    const __nv_bfloat16* t = g.bank + (size_t)v * 4 * pp + dr * g.P + dc;
-    float rgb[3];
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) rgb[ch] = bf(__fmul_rn(ld(t + ch * pp), s));
-    blend(f, rgb, bf(__fmul_rn(ld(t + 3 * pp), s)));
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 scene_raw_kernel(const int8_t* __restrict__ grid,
@@ -187,8 +137,10 @@ extern "C" int scene_raw_launch(
     const void* const* c0s, const int* Vs, const int* Ps, const int* Ks,
     void* out, int N, int GP, int NB, int QP, int obs, int pad,
     void* stream) {
-  if (n_groups < 0 || n_groups > kMaxGroups || NE < 0 ||
-      NE > kMaxEntries || N < 0 || obs <= 0 || QP <= 0) {
+  StampGroups groups;
+  if (!stamps::make_groups(&groups, n_groups, banks, vars, scales, r0s, c0s,
+                           Vs, Ps, Ks) ||
+      NE < 0 || NE > kMaxEntries || N < 0 || obs <= 0 || QP <= 0) {
     return -1;
   }
   if (N == 0) return 0;
@@ -197,18 +149,6 @@ extern "C" int scene_raw_launch(
   for (int i = 0; i < NE; ++i) {
     entries.kind[i] = entry_kind[i];
     entries.theme[i] = entry_theme[i];
-  }
-  StampGroups groups;
-  groups.n = n_groups;
-  for (int i = 0; i < n_groups; ++i) {
-    groups.g[i].bank = static_cast<const __nv_bfloat16*>(banks[i]);
-    groups.g[i].var = static_cast<const int32_t*>(vars[i]);
-    groups.g[i].scale = static_cast<const float*>(scales[i]);
-    groups.g[i].r0 = static_cast<const int32_t*>(r0s[i]);
-    groups.g[i].c0 = static_cast<const int32_t*>(c0s[i]);
-    groups.g[i].V = Vs[i];
-    groups.g[i].P = Ps[i];
-    groups.g[i].K = Ks[i];
   }
   const dim3 grid_dim(N, (obs * obs + kThreads - 1) / kThreads);
   scene_raw_kernel<<<grid_dim, kThreads, 0,

@@ -31,6 +31,8 @@ import functools
 
 import torch
 
+from .stamp_kernel import blend_groups_reference, check, check_groups
+
 _BF16 = torch.bfloat16
 
 
@@ -79,36 +81,14 @@ def scene_raw_reference(gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank,
         frame = torch.where(m[:, None], _blend(frame, t[:, :3], t[:, 3:4]),
                             frame)
 
-    rr = torch.arange(obs, device=dev)
-    for bank, var, scale, r0, c0 in groups:
-        bank = bank.to(_BF16)
-        V, _, P, _ = bank.shape
-        for k in range(var.shape[1]):
-            s = scale[:, k].to(torch.float32)
-            v = var[:, k].long()
-            live = (s != 0) & (v >= 0) & (v < V)
-            dr = rr[None] - r0[:, k].long().clamp(-P, obs)[:, None]  # [N, obs]
-            dc = rr[None] - c0[:, k].long().clamp(-P, obs)[:, None]
-            patch = bank[v.clamp(0, V - 1)]  # [N, 4, P, P]
-            rows = patch.gather(2, dr.clamp(0, P - 1)[:, None, :, None]
-                                .expand(N, 4, obs, P))
-            tex = rows.gather(3, dc.clamp(0, P - 1)[:, None, None, :]
-                              .expand(N, 4, obs, obs))
-            contrib = (tex.to(torch.float32)
-                       * s[:, None, None, None]).to(_BF16)
-            m = (live[:, None, None] & ((dr >= 0) & (dr < P))[:, :, None]
-                 & ((dc >= 0) & (dc < P))[:, None, :])
-            frame = torch.where(
-                m[:, None], _blend(frame, contrib[:, :3], contrib[:, 3:4]),
-                frame)
-    return frame
+    return blend_groups_reference(frame, groups)
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernel binding
 # ---------------------------------------------------------------------------
 
-_MAX_ENTRIES, _MAX_GROUPS = 32, 4  # kMaxEntries, kMaxGroups in the .cu
+_MAX_ENTRIES = 32  # kMaxEntries in csrc/scene_kernel.cu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -163,18 +143,6 @@ def build():
     return _kernel()[1]
 
 
-def _check(t, dtype, shape, device, name):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def scene_raw(gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab,
               tile_bank, entry_kind, entry_theme, groups, obs, qp, pad):
     """Render the scene (arguments and result as `scene_raw_reference`).
@@ -190,26 +158,19 @@ def scene_raw(gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab,
     N, GP, _ = gridp.shape
     ne = len(entry_kind)
     i32 = torch.int32
-    _check(gridp, torch.int8, (N, GP, GP), dev, "grid")
+    check(gridp, torch.int8, (N, GP, GP), dev, "grid")
     for name, t in zip(("ty0", "tx0", "jy", "jx", "bg_i", "theme"),
                        (ty0, tx0, jy, jx, bg_i, theme)):
-        _check(t, i32, (N,), dev, name)
-    _check(bg_bank, _BF16, (bg_bank.shape[0], 3, GP, GP), dev, "bg_bank")
-    _check(tr_tab, i32, (qp, 1, obs), dev, "tr_tab")
-    _check(tile_bank, _BF16, (qp * qp, ne, 4, obs, obs), dev, "tile_bank")
+        check(t, i32, (N,), dev, name)
+    check(bg_bank, _BF16, (bg_bank.shape[0], 3, GP, GP), dev, "bg_bank")
+    check(tr_tab, i32, (qp, 1, obs), dev, "tr_tab")
+    check(tile_bank, _BF16, (qp * qp, ne, 4, obs, obs), dev, "tile_bank")
     if len(entry_theme) != ne:
         raise ValueError("entry_kind and entry_theme differ in length")
-    if ne > _MAX_ENTRIES or len(groups) > _MAX_GROUPS:
+    if ne > _MAX_ENTRIES:
         raise ValueError(f"the kernel takes at most {_MAX_ENTRIES} tile "
-                         f"entries and {_MAX_GROUPS} stamp groups")
-    for gi, (bank, var, scale, r0, c0) in enumerate(groups):
-        V, _, P, _ = bank.shape
-        K = var.shape[1]
-        _check(bank, _BF16, (V, 4, P, P), dev, f"groups[{gi}].bank")
-        _check(var, i32, (N, K), dev, f"groups[{gi}].var")
-        _check(scale, torch.float32, (N, K), dev, f"groups[{gi}].scale")
-        _check(r0, i32, (N, K), dev, f"groups[{gi}].r0")
-        _check(c0, i32, (N, K), dev, f"groups[{gi}].c0")
+                         "entries")
+    check_groups(groups, N, dev)
     launch, _ = _kernel()
     out = torch.empty((N, 3, obs, obs), dtype=_BF16, device=dev)
     banks, var, scale, r0, c0 = (list(x) for x in zip(*groups)) if groups \

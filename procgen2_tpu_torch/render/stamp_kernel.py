@@ -1,0 +1,167 @@
+"""Stamp-over-frame kernel: K premultiplied stamps per env alpha-blended
+OVER a given frame in slot (painter) order, for 1 to 4 stamp groups.
+
+`composite` is the entry point. A CUDA tensor goes to the hand-written
+Hopper kernel in `csrc/stamp_kernel.cu` (it replaces the Pallas kernel
+`procgen2_tpu/render/stamp_kernel.py::_kernel_blend`, entry
+`composite_tpu`); a CPU tensor goes to `composite_reference`, the plain
+torch version with the same semantics. There is no fallback between the
+two: on a CUDA tensor the kernel builds and launches, or the call raises.
+
+Semantics (shared by both), per env and output pixel (r, c), for each
+stamp group (bank [V, 4, P, P], var, scale, r0, c0 [N, K]) in order and
+each slot in order: a slot with scale == 0 or var outside [0, V) is
+skipped; bank[var] is placed at (r0, c0) clipped to [-P, obs]; under it
+contrib = bf16(texel * scale) and frame = frame * (1 - a) + rgb, every
+bf16 multiply, subtract and add rounded on its own (RNE). One call over
+several groups equals one call per group in order.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+_BF16 = torch.bfloat16
+MAX_GROUPS = 4  # stamps::kMaxGroups in csrc/stamps.cuh
+
+
+def blend_groups_reference(frame, groups):
+    """Plain torch painter-order blend of stamp groups over `frame` bf16
+    [N, 3, obs, obs] (the semantics above); returns the new frame."""
+    N, _, obs, _ = frame.shape
+    rr = torch.arange(obs, device=frame.device)
+    for bank, var, scale, r0, c0 in groups:
+        bank = bank.to(_BF16)
+        V, _, P, _ = bank.shape
+        for k in range(var.shape[1]):
+            s = scale[:, k].to(torch.float32)
+            v = var[:, k].long()
+            live = (s != 0) & (v >= 0) & (v < V)
+            dr = rr[None] - r0[:, k].long().clamp(-P, obs)[:, None]  # [N, obs]
+            dc = rr[None] - c0[:, k].long().clamp(-P, obs)[:, None]
+            patch = bank[v.clamp(0, V - 1)]  # [N, 4, P, P]
+            rows = patch.gather(2, dr.clamp(0, P - 1)[:, None, :, None]
+                                .expand(N, 4, obs, P))
+            tex = rows.gather(3, dc.clamp(0, P - 1)[:, None, None, :]
+                              .expand(N, 4, obs, obs))
+            contrib = (tex.to(torch.float32)
+                       * s[:, None, None, None]).to(_BF16)
+            m = (live[:, None, None] & ((dr >= 0) & (dr < P))[:, :, None]
+                 & ((dc >= 0) & (dc < P))[:, None, :])
+            blended = frame * (1.0 - contrib[:, 3:4]) + contrib[:, :3]
+            frame = torch.where(m[:, None], blended, frame)
+    return frame
+
+
+def composite_reference(img, groups):
+    """Plain torch version of the kernel: img bf16 [N, 3, obs, obs];
+    groups [(bank bf16 [V, 4, P, P], var int [N, K], scale f32 [N, K],
+    r0 int [N, K], c0 int [N, K])]. Returns bf16 [N, 3, obs, obs]."""
+    return blend_groups_reference(img.to(_BF16), groups)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel binding
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
+_PP = ctypes.POINTER(ctypes.c_void_p)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """Build (or find) and load the kernel once per process. Returns
+    (launch, build record); `launch` takes inputs `composite` has checked
+    and writes `out`. Needs nvcc."""
+    from . import _build
+
+    lib, record = _build.load("stamp_kernel")
+    fn = lib.stamp_composite_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_P, _I] + [_PP] * 5 + [_IP] * 3 + [_P, _I, _I, _P]
+
+    def launch(img, groups, out):
+        ng = len(groups)
+        banks, var, scale, r0, c0 = (list(x) for x in zip(*groups))
+
+        def ptrs(ts):
+            return (ctypes.c_void_p * ng)(*[t.data_ptr() for t in ts])
+
+        def ints(vs):
+            return (ctypes.c_int * ng)(*vs)
+
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        rc = fn(img.data_ptr(), ng, ptrs(banks), ptrs(var), ptrs(scale),
+                ptrs(r0), ptrs(c0), ints([b.shape[0] for b in banks]),
+                ints([b.shape[-1] for b in banks]),
+                ints([v.shape[1] for v in var]), out.data_ptr(),
+                img.shape[0], img.shape[-1], stream)
+        if rc != 0:
+            raise RuntimeError(f"stamp kernel launch failed: code {rc}")
+
+    return launch, record
+
+
+def build():
+    """Build (or find) and load the kernel; returns the build record
+    (seconds, compiler output). Needs nvcc."""
+    return _kernel()[1]
+
+
+def check_groups(groups, N, device):
+    """Raise unless `groups` are 0 to MAX_GROUPS stamp groups of the
+    kernels' dtypes and shapes for N envs, contiguous, on `device`."""
+    if len(groups) > MAX_GROUPS:
+        raise ValueError(f"the kernels take at most {MAX_GROUPS} stamp groups, "
+                         f"got {len(groups)}")
+    for gi, (bank, var, scale, r0, c0) in enumerate(groups):
+        V, _, P, _ = bank.shape
+        K = var.shape[1]
+        check(bank, _BF16, (V, 4, P, P), device, f"groups[{gi}].bank")
+        check(var, torch.int32, (N, K), device, f"groups[{gi}].var")
+        check(scale, torch.float32, (N, K), device, f"groups[{gi}].scale")
+        check(r0, torch.int32, (N, K), device, f"groups[{gi}].r0")
+        check(c0, torch.int32, (N, K), device, f"groups[{gi}].c0")
+
+
+def check(t, dtype, shape, device, name):
+    """Raise unless tensor `t` has this dtype, shape and device and is
+    contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def composite(img, groups):
+    """Blend the stamp groups over `img` (arguments and result as
+    `composite_reference`). CUDA tensors launch the kernel, once for all
+    groups (dtypes, shapes and devices are checked, nothing is converted);
+    CPU tensors run the plain version."""
+    if img.device.type == "cpu":
+        return composite_reference(img, groups)
+    if img.device.type != "cuda":
+        raise ValueError(f"composite runs on cpu or cuda, not {img.device}")
+    dev = img.device
+    N, _, obs, _ = img.shape
+    check(img, _BF16, (N, 3, obs, obs), dev, "img")
+    if not groups:
+        raise ValueError("composite needs at least one stamp group")
+    check_groups(groups, N, dev)
+    launch, _ = _kernel()
+    out = torch.empty_like(img)
+    launch(img, groups, out)
+    composite.launches += 1
+    return out
+
+
+composite.launches = 0  # kernel launches; the CPU path does not count

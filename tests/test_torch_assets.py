@@ -1,0 +1,90 @@
+"""The port's own asset modules (procgen2_tpu_torch/render/atlas.py and
+phases.py, numpy copies cut to what coinrun and bossfight draw) against
+the JAX package's: every bank either game builds must be identical, array
+for array, and so must the asset tables and phase tables they come from."""
+import numpy as np
+import pytest
+
+from procgen2_tpu.games import bossfight as jboss
+from procgen2_tpu.games import coinrun as jcoin
+from procgen2_tpu.render import atlas as jatlas
+from procgen2_tpu.render import phases as jphases
+from procgen2_tpu_torch.games import bossfight as tboss
+from procgen2_tpu_torch.games import coinrun as tcoin
+from procgen2_tpu_torch.render import atlas as tatlas
+from procgen2_tpu_torch.render import phases as tphases
+
+
+def same(want, got, what):
+    if isinstance(want, dict):
+        assert want.keys() == got.keys(), what
+        for k in want:
+            same(want[k], got[k], f"{what}[{k!r}]")
+        return
+    if isinstance(want, (tuple, list)):
+        assert len(want) == len(got), what
+        for i, (w, g) in enumerate(zip(want, got)):
+            same(w, g, f"{what}[{i}]")
+        return
+    if isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray), what
+        assert want.dtype == got.dtype and want.shape == got.shape, what
+        np.testing.assert_array_equal(want, got, err_msg=what)
+        return
+    assert want == got, what
+
+
+def same_kept(want, got, what):
+    """`same`, over the entries of `got` where both are dicts: the port's
+    games keep the assets their ported paths use."""
+    if isinstance(got, dict):
+        assert set(got) <= set(want), what
+        want = {k: want[k] for k in got}
+    same(want, got, what)
+
+
+@pytest.mark.parametrize("fn", ["_assets", "_stamp_banks", "_scene_assets"])
+def test_coinrun_banks_identical(fn):
+    args = (4,) if fn == "_scene_assets" else ()
+    same_kept(getattr(jcoin, fn)(*args), getattr(tcoin, fn)(*args),
+              f"coinrun.{fn}")
+
+
+@pytest.mark.parametrize("fn", ["_assets", "_stamp_banks", "_bg_bank"])
+def test_bossfight_banks_identical(fn):
+    same_kept(getattr(jboss, fn)(), getattr(tboss, fn)(), f"bossfight.{fn}")
+
+
+def test_tables_identical():
+    for name in ("WALL_THEMES", "WALKING_ENEMIES", "CRATE_TYPES",
+                 "AGENT_THEMES", "BOSS_SHIP_COLORS", "PLAYER_SHIP_COLORS",
+                 "LASER_COLORS", "SPRITE_SIZE", "BG_SIZE"):
+        same(getattr(jatlas, name), getattr(tatlas, name), name)
+    assert tphases.WIN == jphases.WIN
+    for ppu in (tcoin.PPU, 16.0):
+        for qp in (1, 4):
+            same(jphases.phase_tables(ppu, 64, qp),
+                 tphases.phase_tables(ppu, 64, qp), f"phase_tables({ppu}, {qp})")
+
+
+@pytest.mark.parametrize("kind,n", [("sky", 49), ("space", 13)])
+def test_backgrounds_identical(kind, n):
+    same(jatlas.build_backgrounds(kind, n), tatlas.build_backgrounds(kind, n),
+         kind)
+
+
+def test_rasterized_patches_identical():
+    """Rotated, flipped and stretched patches of every sprite the port
+    keeps."""
+    rng = np.random.default_rng(0)
+    for name in sorted(tatlas._REGISTRY):
+        w, h = rng.uniform(2.0, 30.0, 2)
+        rot = float(rng.uniform(0, 2 * np.pi))
+        flip = bool(rng.random() < 0.5)
+        same(jatlas.rasterize_patch(name, w, h, rot, 12, flip),
+             tatlas.rasterize_patch(name, w, h, rot, 12, flip), name)
+
+
+def test_unknown_sprite_raises():
+    with pytest.raises(KeyError):
+        tatlas.build_atlas(("maze_wall",))  # maze is not ported yet

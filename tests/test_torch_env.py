@@ -227,6 +227,8 @@ def test_make_rejects_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             pt.make("coinrun", device="cuda")
+        with pytest.raises(RuntimeError):  # the card is the default device
+            pt.make("bossfight")
     env = pt.make("coinrun", device="cpu")
     with pytest.raises(ValueError):
         env.generate_bank(pt.random.key(0, "meta"), 2)
@@ -235,9 +237,13 @@ def test_make_rejects_what_is_not_ported():
 
 
 def test_port_imports_no_jax():
-    """The port runs where jax is not installed: importing it and running
-    a coinrun step loads neither jax nor flax nor the JAX package."""
+    """The port runs where jax is not installed, and uses nothing of the
+    JAX package: importing it and running a coinrun step and a bossfight
+    step loads neither jax nor flax nor the JAX package, and no module in
+    sys.modules comes from a file under procgen2_tpu/ (which a load by
+    file path would bypass the import blocker with)."""
     code = textwrap.dedent("""
+        import pathlib
         import sys
         BLOCK = ("jax", "jaxlib", "flax", "procgen2_tpu")
         for m in [m for m in sys.modules if m.split(".")[0] in BLOCK]:
@@ -252,12 +258,18 @@ def test_port_imports_no_jax():
         sys.meta_path.insert(0, Blocker())
         import torch
         import procgen2_tpu_torch as pt
-        env = pt.make("coinrun", device="cpu")
-        bank = env.generate_bank(pt.random.key(0), 2)
-        state, ts = env.reset(bank, pt.random.key(1), 2)
-        state, ts = env.step(bank, state, torch.zeros(2, dtype=torch.int32))
-        assert ts.obs.shape == (2, 64, 64, 3)
+        for game in ("coinrun", "bossfight"):
+            env = pt.make(game, device="cpu")
+            bank = env.generate_bank(pt.random.key(0), 2)
+            state, ts = env.reset(bank, pt.random.key(1), 2)
+            state, ts = env.step(bank, state, torch.full((2,), 9, dtype=torch.int32))
+            assert ts.obs.shape == (2, 64, 64, 3)
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
+        jax_pkg = (pathlib.Path.cwd() / "procgen2_tpu").resolve()
+        loaded = [name for name, m in list(sys.modules.items())
+                  if getattr(m, "__file__", None)
+                  and jax_pkg in pathlib.Path(m.__file__).resolve().parents]
+        assert not loaded, loaded
         print("ok")
     """)
     root = str(__import__("pathlib").Path(__file__).resolve().parents[1])

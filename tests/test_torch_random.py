@@ -91,6 +91,44 @@ def test_uniform(shape):
     np.testing.assert_array_equal(want.view(np.int32), got.numpy().view(np.int32))
 
 
+@pytest.mark.parametrize("lo,hi", [(0.7, 1.2), (-1.0, 1.0), (-0.5, 0.5),
+                                   (180.0, 260.0), (0.3, 2.9)])
+def test_uniform_general_range(lo, hi):
+    """Ranges whose width is not a power of two: XLA CPU computes
+    `floats * (hi - lo) + lo` as one fused multiply-add (bossfight's
+    barrier rows draw (0.7, 1.2)). Bitwise, over 4096 keys."""
+    ks = jax.random.split(jax.random.key(21), 4096)
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda kk: jax.random.uniform(kk, (), minval=lo, maxval=hi)))(ks))
+    got = R.uniform(torch.from_numpy(words(ks)), (), lo, hi)
+    np.testing.assert_array_equal(want.view(np.int32), got.numpy().view(np.int32))
+    want = np.asarray(jax.random.uniform(ks[0], (7, 9), minval=lo, maxval=hi))
+    got = R.uniform(torch.from_numpy(words(ks[0])), (7, 9), lo, hi)
+    np.testing.assert_array_equal(want.view(np.int32), got.numpy().view(np.int32))
+
+
+def test_uniform_per_key_range():
+    """Ranges that differ per key, bitwise."""
+    ks = jax.random.split(jax.random.key(22), 512)
+    rng = np.random.default_rng(0)
+    lo = rng.uniform(-3, 3, 512).astype(np.float32)
+    hi = lo + rng.uniform(0.1, 5, 512).astype(np.float32)
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda kk, a, b: jax.random.uniform(kk, (3,), minval=a, maxval=b)))(
+            ks, lo, hi))
+    got = R.uniform(torch.from_numpy(words(ks)), (3,), torch.from_numpy(lo),
+                    torch.from_numpy(hi))
+    np.testing.assert_array_equal(want.view(np.int32), got.numpy().view(np.int32))
+
+
+def test_fma32_rounds_once():
+    """_fma32 is a * b + c rounded once to f32, where two f32 ops round
+    twice: 1 + 2**-12 squared minus 1 keeps its 2**-24 term."""
+    a = torch.tensor([1.0 + 2.0 ** -12], dtype=torch.float32)
+    assert float(R._fma32(a, a, -1.0)) == 2.0 ** -11 + 2.0 ** -24
+    assert float(a * a - 1.0) == 2.0 ** -11
+
+
 def test_bad_keys_and_seeds_raise():
     with pytest.raises(TypeError):
         R.split(torch.zeros(2, dtype=torch.int32))

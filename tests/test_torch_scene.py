@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from procgen2_tpu.games import coinrun as jcoin
 from procgen2_tpu.render import phases as jphases
 from procgen2_tpu.render import scene_kernel as jsk
@@ -108,6 +109,51 @@ def test_other_devices_raise():
              else a.to("meta") for a in args[:10]]
     with pytest.raises(ValueError):
         tsk.scene_raw(*targs, args[10], args[11], [], *args[13:])
+
+
+def test_chip_smoke_scene_work_counts_each_read_once():
+    """chip_smoke.py's bound of the scene kernel counts the elements the
+    kernel reads, each once, and the blends it does, as a walk over every
+    pixel of the kernel's reads (csrc/scene_kernel.cu) finds them."""
+    args = _random_raw(4, N=2)
+    (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
+     kinds, themes, groups, obs, qp, pad) = args
+    N, GP, _ = gridp.shape
+    cells, bgs, texels, tiles = set(), set(), set(), 0
+    for e in range(N):
+        py, px = min(max(jy[e], 0), qp - 1), min(max(jx[e], 0), qp - 1)
+        for r in range(obs):
+            y = ty0[e] + pad + tr_tab[py, 0, r]
+            for c in range(obs):
+                x = tx0[e] + pad + tr_tab[px, 0, c]
+                G = 0
+                if 0 <= y < GP and 0 <= x < GP:
+                    cells.add((e, y, x))
+                    G = gridp[e, y, x]
+                    if 0 <= bg_i[e] < bg_bank.shape[0]:
+                        bgs.add((bg_i[e], y, x))
+                for i, (k, th) in enumerate(zip(kinds, themes)):
+                    if G == k and (th < 0 or th == theme[e]):
+                        tiles += 1
+                        texels.add((py, px, i, r, c))
+    blends = 0
+    for bank, var, scale, r0, c0 in groups:
+        P = bank.shape[-1]
+        for e, k in np.ndindex(var.shape):
+            if scale[e, k] != 0 and 0 <= var[e, k] < bank.shape[0]:
+                blends += sum(0 <= r0[e, k] + i < obs and 0 <= c0[e, k] + j < obs
+                              for i in range(P) for j in range(P))
+    tgroups = [tuple(_to_torch(x) for x in g) for g in groups]
+    small = sum(a.nbytes for a in (ty0, tx0, jy, jx, bg_i, theme, tr_tab))
+    small += sum(x.numel() * x.element_size() for g in tgroups for x in g)
+    want_bytes = (len(cells) + 3 * 2 * len(bgs) + 4 * 2 * len(texels)
+                  + small + N * 3 * obs * obs * 2)
+    targs = [_to_torch(a) for a in args[:10]]
+    got = chip_smoke.scene_work((*targs, kinds, themes, tgroups, obs, qp, pad))
+    assert got == (want_bytes, chip_smoke.TILE_OPS * tiles
+                   + chip_smoke.STAMP_OPS * blends)
+    # the windows read a small part of the padded grid
+    assert len(cells) < gridp.size // 2
 
 
 @pytest.fixture(scope="module")

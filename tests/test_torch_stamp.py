@@ -1,0 +1,163 @@
+"""The plain torch version of the stamp-over-frame kernel
+(procgen2_tpu_torch/render/stamp_kernel.py::composite_reference) against
+the JAX package's Pallas kernel `stamp_kernel.composite_tpu` run in
+interpret mode, bitwise: bossfight's four stamp-group shapes and a random
+case with out-of-range variants, scale 0, fractional scales, stamps off
+every edge and overlapping stamps. Also: one call over several groups
+equals one call per group in order, and `compositor.composite_stamps`
+equals the JAX function on its kernel path.
+
+The CUDA kernel itself cannot run here; tests/test_torch_cuda.py and
+chip_smoke.py hold it against this plain version on the card."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from procgen2_tpu.render import compositor as jC
+from procgen2_tpu.render import stamp_kernel as jsk
+from procgen2_tpu_torch.games import bossfight as tboss
+from procgen2_tpu_torch.render import compositor as tC
+from procgen2_tpu_torch.render import stamp_kernel as tsk
+
+OBS, N = 64, 8
+BOSS_GROUPS = ("barbb", "bosshield", "dmg", "abship")  # in painter order
+shapes = chip_smoke.bossfight_group_shapes  # (V, P, K) of each
+
+
+def _bf16(a):
+    """numpy -> torch bf16 (the values rounded to bf16)."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+
+
+def _to_jax(t):
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(t.numpy())
+
+
+def random_img(rng):
+    """A non-negative frame (the kernels' frames are backgrounds in
+    [0, 255]; a -0.0 would come out of the TPU kernel's window as +0.0)."""
+    return _bf16(rng.uniform(0, 255, (N, 3, OBS, OBS)))
+
+
+def random_group(rng, V, P, K):
+    """Premultiplied bank; var in [-1, V]; scales 0, 1, 0.5, 0.3 and random
+    fractions; r0/c0 in [-P - 2, OBS + 2]; slot 1 overlaps slot 0."""
+    a = rng.random((V, 1, P, P))
+    bank = _bf16(np.concatenate([rng.random((V, 3, P, P)) * 255 * a, a], 1))
+    var = rng.integers(-1, V + 1, (N, K)).astype(np.int32)
+    scale = np.where(rng.random((N, K)) < 0.5,
+                     rng.choice(np.float32([0, 1, 1, 0.5, 0.3]), (N, K)),
+                     rng.random((N, K))).astype(np.float32)
+    r0 = rng.integers(-P - 2, OBS + 3, (N, K)).astype(np.int32)
+    c0 = rng.integers(-P - 2, OBS + 3, (N, K)).astype(np.int32)
+    if K > 1:
+        r0[:, 1], c0[:, 1] = r0[:, 0] + 2, c0[:, 0] + 2
+    # pinned corners: every edge crossed, and stamps just off the frame
+    r0[0, 0], c0[0, 0] = -P + 1, -P + 1
+    r0[1, 0], c0[1, 0] = OBS - 1, OBS - 1
+    r0[2, 0], c0[2, 0] = -P, OBS
+    r0[3, 0], c0[3, 0] = -1, OBS - P
+    var[:4, 0], scale[:4, 0] = 0, 1.0
+    return (bank, torch.from_numpy(var), torch.from_numpy(scale),
+            torch.from_numpy(r0), torch.from_numpy(c0))
+
+
+def pallas(img, group):
+    bank, var, scale, r0, c0 = (_to_jax(t) for t in group)
+    return jsk.composite_tpu(_to_jax(img), bank, var, scale, r0, c0, OBS,
+                             interpret=True)
+
+
+def bits(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy().view(np.int32)
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("g", range(len(BOSS_GROUPS)), ids=BOSS_GROUPS)
+def test_reference_matches_pallas_interpret(g):
+    rng = np.random.default_rng(10 + g)
+    img = random_img(rng)
+    group = random_group(rng, *shapes()[g])
+    want = pallas(img, group)
+    got = tsk.composite_reference(img, [group])
+    assert got.dtype == torch.bfloat16 and got.shape == (N, 3, OBS, OBS)
+    np.testing.assert_array_equal(bits(want), bits(got))
+
+
+def test_reference_matches_pallas_random_case():
+    """A bank and slot count of no game: V=5, P=12, K=9."""
+    rng = np.random.default_rng(3)
+    img = random_img(rng)
+    group = random_group(rng, 5, 12, 9)
+    np.testing.assert_array_equal(bits(pallas(img, group)),
+                                  bits(tsk.composite_reference(img, [group])))
+
+
+def test_multi_group_call_equals_calls_in_order():
+    """One call over bossfight's four groups equals one Pallas call per
+    group in painter order, and one plain call per group."""
+    rng = np.random.default_rng(4)
+    img = random_img(rng)
+    groups = [random_group(rng, *s) for s in shapes()]
+    got = tsk.composite(img, groups)
+    want, seq = _to_jax(img), img
+    for group in groups:
+        want = pallas(torch.from_numpy(np.asarray(want, np.float32)).to(
+            torch.bfloat16), group)
+        seq = tsk.composite(seq, [group])
+    np.testing.assert_array_equal(bits(want), bits(got))
+    assert torch.equal(got.view(torch.int16), seq.view(torch.int16))
+
+
+def test_composite_stamps_matches_jax(monkeypatch):
+    """compositor.composite_stamps (bank premultiplied once, alives and
+    alpha folded into the slot scale) against the JAX function on its TPU
+    kernel path."""
+    orig = jsk.composite_tpu
+    monkeypatch.setattr(jC, "_use_stamp_kernel", lambda: True)
+    monkeypatch.setattr(jsk, "composite_tpu",
+                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+    rng = np.random.default_rng(5)
+    img = random_img(rng)
+    pbank = tboss._stamp_banks()["abship"]  # u8 [12, 4, 8, 8]
+    V, K = pbank.shape[0], tboss.AB_CULL + 1
+    var = rng.integers(0, V, (N, K)).astype(np.int32)
+    r0 = rng.integers(-10, 70, (N, K)).astype(np.int32)
+    c0 = rng.integers(-10, 70, (N, K)).astype(np.int32)
+    alives = rng.random((N, K)) < 0.6
+    alpha = rng.choice(np.float32([1.0, 0.7]), (N, K))
+    want = jC.composite_stamps(_to_jax(img), pbank, jnp.asarray(var),
+                               jnp.asarray(r0), jnp.asarray(c0),
+                               alives=jnp.asarray(alives),
+                               alpha=jnp.asarray(alpha))
+    got = tC.composite_stamps(img, tC._premultiply_bank(pbank),
+                              torch.from_numpy(var), torch.from_numpy(r0),
+                              torch.from_numpy(c0),
+                              alives=torch.from_numpy(alives),
+                              alpha=torch.from_numpy(alpha))
+    np.testing.assert_array_equal(bits(want), bits(got))
+
+
+def test_cpu_tensors_take_the_plain_path():
+    rng = np.random.default_rng(6)
+    img = random_img(rng)
+    groups = [random_group(rng, *s) for s in shapes()]
+    before = tsk.composite.launches
+    got = tsk.composite(img, groups)
+    assert torch.equal(got.view(torch.int16),
+                       tsk.composite_reference(img, groups).view(torch.int16))
+    assert tsk.composite.launches == before  # only kernel launches count
+
+
+def test_other_devices_raise():
+    rng = np.random.default_rng(7)
+    img = random_img(rng).to("meta")
+    group = tuple(t.to("meta") for t in random_group(rng, *shapes()[0]))
+    with pytest.raises(ValueError):
+        tsk.composite(img, [group])
