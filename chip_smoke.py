@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the port's
 kernels from this checkout, holds each against its plain torch version,
-drives the main paths of coinrun and bossfight at full width, and checks
-the results.
+drives the main paths of coinrun, bossfight and climber at full width,
+drives the render entry points of the stamp-sum and expanded-field scene
+kernels on climber's real inputs, and checks the results.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -11,19 +12,23 @@ Phases (any failure raises, so the exit code is non-zero and the final
 `ok` line is not printed):
   1. device: a CUDA card must be visible; prints nvidia-smi's name and
      power limit; make("coinrun") (on the card by default);
-  2. build: builds the scene kernel and the stamp kernel (nvcc, sm_90a,
-     one compiler process each, started together) and prints their times
-     and ptxas registers and spills;
-  3. kernels vs plain on random inputs at 4096 envs: the scene kernel on
-     coinrun's shapes, the stamp kernel on bossfight's four stamp groups
-     (out-of-range variants, scale 0, fractional scales, stamps off every
-     edge, overlaps): bitwise equal;
-  4. coinrun main path: generate_bank(1024) -> reset(4096) -> lanes 0-2 placed on
-     the coin, a saw and lava -> 8 steps writing obs into a uint8
-     [8, 4096, 64, 64, 3] buffer; the launch count shows the path ran the
-     kernel; shapes, dtypes, rewards and obs are checked, and the coin lane
-     must have terminated and restarted; the first 8 envs are re-run on
-     the CPU through the port and must match exactly, auto-resets
+  2. build: builds the scene kernels (B1, B5) and the stamp kernels (B3,
+     B4) from their two sources (nvcc, sm_90a, one compiler process each,
+     started together) and prints their times and ptxas registers and
+     spills;
+  3. kernels vs plain on random inputs at 4096 envs, all bitwise equal:
+     the raw scene kernel (B1) on coinrun's shapes; the stamp-over-frame
+     kernel (B3) on bossfight's four stamp groups; the stamp-sum kernel
+     (B4) on groups with P = 8, 12 and 20; the expanded-field scene kernel
+     (B5) on a random scene of 5 tile entries (two themed) and two groups.
+     The random groups have out-of-range variants, scale 0, fractional
+     scales, stamps off every edge and overlaps;
+  4. coinrun main path: generate_bank(1024) -> reset(4096) -> lanes 0-2
+     placed on the coin, a saw and lava -> 8 steps writing obs into a
+     uint8 [8, 4096, 64, 64, 3] buffer; the launch count shows the path
+     ran the kernel; shapes, dtypes, rewards and obs are checked, and the
+     coin lane must have terminated and restarted; the first 8 envs are
+     re-run on the CPU through the port and must match exactly, auto-resets
      included; the scene kernel is then held against its plain version
      on the real scene inputs;
   5. where the time goes (coinrun): host wall time of each part of one
@@ -39,7 +44,22 @@ Phases (any failure raises, so the exit code is non-zero and the final
      kernel is then held against its plain version on the real render
      inputs;
   7. where the time goes (bossfight), as in 5;
-  8. prints the kernels' JSON line (with each kernel's least possible
+  8. climber main path: make("climber") -> generate_bank(1024) ->
+     reset(4096) -> a lane's agent placed on a live mob (death, 0) and
+     another lane's on its last crystal with the others taken (+1 + 10)
+     -> 8 steps writing obs into the uint8 buffer; the raw scene kernel's
+     launches, both lanes' termination and restart on step 0, shapes,
+     dtypes, rewards and obs are checked; the first 8 envs are re-run on
+     the CPU and must match exactly at every step;
+  9. climber's render entry points: `compositor.stamps_from_pixel_bank`
+     on climber's merged crystal/mob/agent group (B4) and
+     `scene_kernel.scene` on climber's expanded field (B5), each launched
+     once with its count set to 0 before; then B1, B4 and B5 each held
+     against its plain version on these real inputs, and B5 on the
+     expanded field bitwise equal to B1 on the raw inputs of the same
+     state;
+ 10. where the time goes (climber), as in 5;
+ 11. prints the kernels' JSON line (with each kernel's least possible
      time on this card, `bound_ms`), then the `ok` line last.
 """
 from __future__ import annotations
@@ -58,7 +78,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
 import procgen2_tpu_torch as pt  # noqa: E402
 from procgen2_tpu_torch import random as prng  # noqa: E402
-from procgen2_tpu_torch.games import bossfight, coinrun  # noqa: E402
+from procgen2_tpu_torch.games import bossfight, climber, coinrun  # noqa: E402
+from procgen2_tpu_torch.render import compositor  # noqa: E402
 from procgen2_tpu_torch.render import scene_kernel, stamp_kernel  # noqa: E402
 from procgen2_tpu_torch.utils import (bank_gather, tree_map,  # noqa: E402
                                       tree_select)
@@ -134,8 +155,9 @@ def bound(nbytes, nops):
 
 
 # 11 f32 ops per stamp blend (4 texel * scale, 1 - a, 3 multiplies, 3 adds),
-# 7 per tile blend (1 - a, 3 multiplies, 3 adds)
-STAMP_OPS, TILE_OPS = 11, 7
+# 7 per tile blend (1 - a, 3 multiplies, 3 adds), 8 per summed stamp texel
+# (4 texel * scale, 4 adds)
+STAMP_OPS, TILE_OPS, SUM_OPS = 11, 7, 8
 
 
 def distinct(idx, valid, size):
@@ -173,21 +195,55 @@ def scene_work(args):
                         NB * GP * GP)
     G = torch.where(inb, gridp.reshape(-1)[ncell].long(), 0)
     npix = obs * obs
-    texel = ((py * qp + px)[:, None] * npix
-             + torch.arange(npix, device=dev)).expand(N, npix)
-    tiles = texels = 0
-    for k, th in zip(kinds, themes):
-        m = G == int(k)
-        if th >= 0:
-            m = m & (theme == int(th))[:, None, None]
-        tiles += int(m.sum())
-        texels += distinct(texel, m.reshape(N, npix), qp * qp * npix)
+    tiles, texels = tile_work(G, py * qp + px, theme, npix, qp * qp, kinds,
+                              themes)
     nbytes = (grid_cells * gridp.element_size()
               + bg_cells * 3 * bg_bank.element_size()
               + texels * 4 * tile_bank.element_size()
               + tensor_bytes(ty0, tx0, jy, jx, bg_i, theme, tr_tab, groups)
               + N * 3 * npix * 2)
     return nbytes, TILE_OPS * tiles + STAMP_OPS * stamp_blends(groups, obs)
+
+
+def tile_work(G, ph, theme, npix, nph, kinds, themes):
+    """(tile blends, distinct tile-bank texels read) of the tile entries
+    over kind field G [N, obs, obs] at phases ph int [N] (in range)."""
+    N = G.shape[0]
+    texel = (ph.long()[:, None] * npix
+             + torch.arange(npix, device=G.device)).expand(N, npix)
+    tiles = texels = 0
+    for k, th in zip(kinds, themes):
+        m = G == int(k)
+        if th >= 0:
+            m = m & (theme == int(th))[:, None, None]
+        tiles += int(m.sum())
+        texels += distinct(texel, m.reshape(N, npix), nph * npix)
+    return tiles, texels
+
+
+def field_work(args):
+    """(bytes, f32 operations) that one `scene` call (B5) needs on these
+    inputs: X, p_joint, theme and the stamp groups read once whole, the
+    tile-bank texels some tile blend reads, the output written once; the
+    tile and stamp blends this data needs."""
+    X, p_joint, theme, tile_bank, kinds, themes, groups, obs = args
+    nph = tile_bank.shape[0]
+    ph = p_joint.long().clamp(0, nph - 1)
+    tiles, texels = tile_work(X[:, 0].float(), ph, theme, obs * obs, nph,
+                              kinds, themes)
+    nbytes = (tensor_bytes(X, p_joint, theme, groups)
+              + texels * 4 * tile_bank.element_size()
+              + X.shape[0] * 3 * obs * obs * 2)
+    return nbytes, TILE_OPS * tiles + STAMP_OPS * stamp_blends(groups, obs)
+
+
+def sum_bound(group, obs):
+    """(bound_ms, bound_by) of one `stamps` call (B4): the group read once
+    (its bank whole), the 4-channel frame written once; the summed stamp
+    texels this data needs."""
+    N = group[1].shape[0]
+    nbytes = tensor_bytes(group) + N * 4 * obs * obs * 2
+    return bound(nbytes, SUM_OPS * stamp_blends([group], obs))
 
 
 def scene_bound(args):
@@ -277,19 +333,76 @@ def random_stamps(n, dev, seed=0):
                  for V, P, K in bossfight_group_shapes()]
 
 
-def kernel_vs_plain(args, iters):
-    """Bitwise check and times of the scene kernel vs its plain version.
-    These launches are not the main path's and are not counted there."""
-    got = scene_kernel.scene_raw(*args)
-    want = scene_kernel.scene_raw_reference(*args)
+SUM_GROUP_SHAPES = ((6, 8, 17), (5, 12, 9), (4, 20, 5))  # (V, P, K)
+
+
+def random_sum_groups(n, dev, seed=0):
+    """Random stamp-sum inputs: one group per (V, P, K) of
+    SUM_GROUP_SHAPES (random_group)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [random_group(g, n, dev, V, P, K, 64) for V, P, K in SUM_GROUP_SHAPES]
+
+
+def random_field(n, dev, seed=0):
+    """Random inputs of `scene` (B5), shaped like the JAX package's
+    tests/test_scene_kernel.py::_random_scene: 5 tile entries (two themed),
+    a kind field of values 0..5 and a background of whole values in
+    [0, 255]; joint phases in [-1, NPH] (both ends out of range), themes 0
+    and 1; two stamp groups (random_group)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    obs, nph, ne = 64, 16, 5
+    kinds, themes = tuple(range(1, ne + 1)), (-1, -1, 0, 1, -1)
+    X = torch.cat([ri(0, ne + 1, (n, 1, obs, obs)),
+                   ri(0, 256, (n, 3, obs, obs))], dim=1).to(torch.bfloat16)
+    a = torch.rand((nph, ne, 1, obs, obs), generator=g, device=dev)
+    tile_bank = torch.cat([torch.rand((nph, ne, 3, obs, obs), generator=g,
+                                      device=dev) * 255 * a, a],
+                          dim=2).to(torch.bfloat16)
+    groups = [random_group(g, n, dev, 6, 8, 5, obs),
+              random_group(g, n, dev, 4, 12, 2, obs)]
+    return (X, ri(-1, nph + 1, (n,)), ri(0, 2, (n,)), tile_bank, kinds,
+            themes, groups, obs)
+
+
+def vs_plain(what, kernel, plain, args, iters):
+    """Bitwise check and times of a kernel's wrapper vs its plain version
+    on `args` (a tuple result is compared as one tensor). These launches
+    are not the main path's and are not counted there."""
+    def run(fn):
+        out = fn(*args)
+        return torch.cat(out, dim=1) if isinstance(out, tuple) else out
+
+    got, want = run(kernel), run(plain)
     torch.cuda.synchronize()
     ndiff, err = bitwise_diff(got, want)
     if ndiff:
-        raise AssertionError(f"scene kernel differs from its plain version "
-                             f"in {ndiff} values (max abs err {err})")
-    ms = cuda_ms(lambda: scene_kernel.scene_raw(*args), iters)
-    plain_ms = cuda_ms(lambda: scene_kernel.scene_raw_reference(*args), 3)
+        raise AssertionError(f"{what} differs from its plain version in "
+                             f"{ndiff} values (max abs err {err})")
+    ms = cuda_ms(lambda: kernel(*args), iters)
+    plain_ms = cuda_ms(lambda: plain(*args), 3)
     return err, ms, plain_ms
+
+
+def scene_vs_plain(args, iters):
+    return vs_plain("scene kernel", scene_kernel.scene_raw,
+                    scene_kernel.scene_raw_reference, args, iters)
+
+
+def sum_vs_plain(group, iters):
+    return vs_plain("stamp-sum kernel", stamp_kernel.stamps,
+                    stamp_kernel.stamps_reference, (*group, 64), iters)
+
+
+def field_vs_plain(args, iters):
+    return vs_plain("expanded-field scene kernel", scene_kernel.scene,
+                    scene_kernel.scene_reference, args, iters)
 
 
 def stamps_vs_plain(img, groups, iters):
@@ -297,22 +410,15 @@ def stamps_vs_plain(img, groups, iters):
     and one launch over all groups against one launch per group in turn.
     These launches are not the main path's and are not counted there."""
     got = stamp_kernel.composite(img, groups)
-    want = stamp_kernel.composite_reference(img, groups)
     seq = img
     for group in groups:
         seq = stamp_kernel.composite(seq, [group])
     torch.cuda.synchronize()
-    ndiff, err = bitwise_diff(got, want)
-    if ndiff:
-        raise AssertionError(f"stamp kernel differs from its plain version "
-                             f"in {ndiff} values (max abs err {err})")
     if bitwise_diff(got, seq)[0]:
         raise AssertionError("one stamp-kernel launch over all groups "
                              "differs from one launch per group")
-    ms = cuda_ms(lambda: stamp_kernel.composite(img, groups), iters)
-    plain_ms = cuda_ms(lambda: stamp_kernel.composite_reference(img, groups),
-                       3)
-    return err, ms, plain_ms
+    return vs_plain("stamp kernel", stamp_kernel.composite,
+                    stamp_kernel.composite_reference, (img, groups), iters)
 
 
 def place_on_hazards(gs, n):
@@ -358,6 +464,29 @@ def place_boss_deaths(gs):
     return dataclasses.replace(
         gs, pos=pos, phase_index=phase_index, phase_timer=phase_timer, hp=hp,
         damage_timer=damage_timer), [0, 1]
+
+
+def place_climber_lanes(gs, n):
+    """Of the first n lanes of a climber State: the first lane with a live
+    mob on that mob (its rect 0.3 below the mob's centre: contact, and no
+    crystal), the first other lane on its last crystal with every other
+    crystal taken (+1 + 10); their velocities zeroed. The lanes chosen
+    depend only on the first n lanes. Returns (state, lanes)."""
+    lv = gs.level
+    pos, vel, taken = gs.pos.clone(), gs.vel.clone(), gs.point_taken.clone()
+    alive = lv.mob_alive[:n].cpu()
+    mob = next(i for i in range(n) if bool(alive[i].any()))
+    pos[mob] = (gs.mob_pos[mob, int(alive[mob].int().argmax())]
+                + torch.tensor([0.0, 0.3], device=pos.device))
+    crys = next(i for i in range(n) if i != mob)
+    last = int(lv.point_exists[crys].sum()) - 1
+    taken[crys] = lv.point_exists[crys]
+    taken[crys, last] = False
+    pos[crys] = lv.point_pos[crys, last] + torch.tensor([0.0, 0.5],
+                                                        device=pos.device)
+    vel[[mob, crys]] = 0.0
+    return dataclasses.replace(gs, pos=pos, vel=vel, point_taken=taken), \
+        [mob, crys]
 
 
 def wall_ms(fn, iters=5):
@@ -574,7 +703,7 @@ def coinrun_path(actions):
 
     state = states[-1]
     inputs = coinrun._scene_inputs(env.cfg, state.game)
-    err, ms, plain_ms = kernel_vs_plain(inputs, 20)
+    err, ms, plain_ms = scene_vs_plain(inputs, 20)
     bound_ms, bound_by = scene_bound(inputs)
     log(f"scene kernel vs plain, coinrun inputs N={NUM_ENVS}: bitwise equal; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
@@ -663,6 +792,110 @@ def bossfight_path(actions):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def climber_path(actions):
+    """Climber's main path, its checks and the CPU re-run; then the render
+    entry points of B4 and B5 on its real inputs, each kernel against its
+    plain version there, B5 against B1, and the breakdown. Returns the
+    JSON entries of B4 and B5, and B1's main-path launches and error."""
+    env = pt.make("climber")
+    bank = make_bank(env)
+    obs_buf = torch.empty((T, NUM_ENVS, 64, 64, 3), dtype=torch.uint8,
+                          device=env.device)
+
+    def place(gs):
+        return place_climber_lanes(gs, CPU_ENVS)
+
+    states, out, lanes, launches = drive(env, bank, actions, obs_buf, place,
+                                         scene_kernel.scene_raw)
+    if launches != T + 1:
+        raise AssertionError(f"climber's main path launched the scene kernel "
+                             f"{launches} times, expected {T + 1}")
+    rewards, dones = check_outputs(obs_buf, out,
+                                   (0.0, 1.0, 2.0, 10.0, 11.0, 12.0))
+    g0 = states[0].game
+    for lane, want in zip(lanes, (0.0, 11.0)):
+        if not (bool(dones[0, lane]) and float(rewards[0, lane]) == want
+                and int(g0.t[lane]) == 0 and int(states[0].ep_length[lane]) == 0
+                and not bool(g0.point_taken[lane].any())):
+            raise AssertionError(f"climber lane {lane} did not end its "
+                                 f"episode with {want} and restart on step 0")
+    log(f"climber checks: obs {tuple(obs_buf.shape)} uint8 mean "
+        f"{float(obs_buf.float().mean()):.3f}; crystal rewards: "
+        f"{int((rewards > 0).sum())}; terminations: {int(dones.sum())}; "
+        f"mob lane {lanes[0]} ended with 0, last-crystal lane {lanes[1]} "
+        f"with 11, both restarted on step 0")
+    cpu_rerun("climber", bank, actions, obs_buf, states, out, place, lanes)
+    log(f"climber CPU re-run of the first {CPU_ENVS} envs: bank, states, "
+        f"rewards, terminations and obs identical at every step "
+        f"({int(dones[:, :CPU_ENVS].sum())} auto-resets)")
+
+    # ---- 9. the render entry points of B4 and B5 on climber's inputs ----
+    cfg, gs = env.cfg, states[-1].game
+    inputs = climber._scene_inputs(cfg, gs)
+    field = climber._scene_field(cfg, gs)
+    bank_, var, scale, r0, c0 = field[6][0]
+    stamp_kernel.stamps.launches = 0
+    scene_kernel.scene.launches = 0
+    summed = compositor.stamps_from_pixel_bank(bank_, var, r0, c0,
+                                               alives=scale)
+    img5 = scene_kernel.scene(*field)
+    torch.cuda.synchronize()
+    sum_launches = stamp_kernel.stamps.launches
+    field_launches = scene_kernel.scene.launches
+    if sum_launches != 1 or field_launches != 1:
+        raise AssertionError(f"the entry points launched B4 {sum_launches} "
+                             f"and B5 {field_launches} times, expected 1")
+    if summed[0].shape != (NUM_ENVS, 3, 64, 64) or not bool(
+            torch.isfinite(summed[0].float()).all()):
+        raise AssertionError("stamps_from_pixel_bank: shape or values")
+    log(f"climber entry points: stamps_from_pixel_bank launched B4 "
+        f"{sum_launches}x, scene launched B5 {field_launches}x")
+
+    img1 = scene_kernel.scene_raw(*inputs)
+    torch.cuda.synchronize()
+    if bitwise_diff(img5, img1)[0]:
+        raise AssertionError("B5 on climber's expanded field differs from B1 "
+                             "on the raw inputs of the same state")
+    err1, ms1, plain1 = scene_vs_plain(inputs, 20)
+    b1, by1 = scene_bound(inputs)
+    log(f"scene kernel vs plain, climber inputs N={NUM_ENVS}: bitwise equal; "
+        f"kernel {ms1:.4f} ms, plain {plain1:.4f} ms, bound {b1:.4f} ms "
+        f"({by1})")
+    group = (bank_, var, scale, r0, c0)
+    err4, ms4, plain4 = sum_vs_plain(group, 20)
+    b4, by4 = sum_bound(group, 64)
+    log(f"stamp-sum kernel vs plain, climber's merged group N={NUM_ENVS}: "
+        f"bitwise equal; kernel {ms4:.4f} ms, plain {plain4:.4f} ms, bound "
+        f"{b4:.4f} ms ({by4}); summed texels {stamp_blends([group], 64)}")
+    err5, ms5, plain5 = field_vs_plain(field, 20)
+    b5, by5 = bound(*field_work(field))
+    log(f"expanded-field scene kernel vs plain, climber inputs N={NUM_ENVS}: "
+        f"bitwise equal, and bitwise equal to the raw scene kernel on the "
+        f"same state; kernel {ms5:.4f} ms, plain {plain5:.4f} ms, bound "
+        f"{b5:.4f} ms ({by5})")
+
+    breakdown(env, bank, states[-1], actions[-1], obs_buf, [
+        ("scene inputs (climber._scene_inputs)",
+         lambda: climber._scene_inputs(cfg, gs)),
+        ("scene kernel (scene_raw)", lambda: scene_kernel.scene_raw(*inputs)),
+        ("round / clip / uint8",
+         lambda: torch.clamp(torch.round(img1), 0, 255).to(torch.uint8)),
+    ])
+    stamps_entry = dict(
+        name="stamps", route="cuda",
+        source="procgen2_tpu_torch/render/csrc/stamp_kernel.cu",
+        replaces="procgen2_tpu/render/stamp_kernel.py:234",
+        launches=sum_launches, max_abs_err=err4, ms=ms4, plain_ms=plain4,
+        bound_ms=b4, bound_by=by4, library_ms=None)
+    scene_entry = dict(
+        name="scene", route="cuda",
+        source="procgen2_tpu_torch/render/csrc/scene_kernel.cu",
+        replaces="procgen2_tpu/render/scene_kernel.py:327",
+        launches=field_launches, max_abs_err=err5, ms=ms5, plain_ms=plain5,
+        bound_ms=b5, bound_by=by5, library_ms=None)
+    return stamps_entry, scene_entry, launches, err1
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -681,7 +914,7 @@ def main():
 
     # ---- 3. kernels vs plain, random inputs ----
     scene_args = random_scene(NUM_ENVS, dev)
-    err_r, ms_r, plain_r = kernel_vs_plain(scene_args, 20)
+    err_r, ms_r, plain_r = scene_vs_plain(scene_args, 20)
     bound_r, by_r = scene_bound(scene_args)
     log(f"scene kernel vs plain, random inputs N={NUM_ENVS}: bitwise equal; "
         f"kernel {ms_r:.4f} ms, plain {plain_r:.4f} ms, bound {bound_r:.4f} "
@@ -692,6 +925,21 @@ def main():
     log(f"stamp kernel vs plain, random bossfight-shaped inputs N={NUM_ENVS}: "
         f"bitwise equal, one launch = one per group; kernel {sms_r:.4f} ms, "
         f"plain {splain_r:.4f} ms, bound {sbound_r:.4f} ms ({sby_r})")
+    err4_r = 0.0
+    for (V, P, K), group in zip(SUM_GROUP_SHAPES, random_sum_groups(NUM_ENVS,
+                                                                    dev)):
+        e, ms, plain = sum_vs_plain(group, 20)
+        b, by = sum_bound(group, 64)
+        err4_r = max(err4_r, e)
+        log(f"stamp-sum kernel vs plain, random group V={V} P={P} K={K} "
+            f"N={NUM_ENVS}: bitwise equal; kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {b:.4f} ms ({by})")
+    field_args = random_field(NUM_ENVS, dev)
+    err5_r, ms, plain = field_vs_plain(field_args, 20)
+    b, by = bound(*field_work(field_args))
+    log(f"expanded-field scene kernel vs plain, random scene N={NUM_ENVS}: "
+        f"bitwise equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{b:.4f} ms ({by})")
 
     g = torch.Generator(device=dev)
     g.manual_seed(2)
@@ -702,11 +950,16 @@ def main():
     scene = coinrun_path(actions)
     # ---- 6, 7. bossfight: main path, checks, breakdown ----
     stamp = bossfight_path(actions)
+    # ---- 8, 9, 10. climber: main path, entry points, breakdown ----
+    sums, field, climber_launches, err1 = climber_path(actions)
 
-    # ---- 8. result ----
-    scene["max_abs_err"] = max(scene["max_abs_err"], err_r)
+    # ---- 11. result ----
+    scene["launches"] += climber_launches  # both main paths that run B1
+    scene["max_abs_err"] = max(scene["max_abs_err"], err_r, err1)
     stamp["max_abs_err"] = max(stamp["max_abs_err"], serr_r)
-    log(json.dumps({"kernels": [scene, stamp]}))
+    sums["max_abs_err"] = max(sums["max_abs_err"], err4_r)
+    field["max_abs_err"] = max(field["max_abs_err"], err5_r)
+    log(json.dumps({"kernels": [scene, stamp, sums, field]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

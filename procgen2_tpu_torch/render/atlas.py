@@ -1,8 +1,8 @@
 """Procedural sprite atlas, backgrounds and pixel banks (numpy), for the
-games the port has: coinrun and bossfight.
+games the port has: coinrun, bossfight and climber.
 
 The port's own copy of the JAX package's `procgen2_tpu/render/atlas.py`,
-cut to the sprites those two games draw; everything kept is unchanged, so
+cut to the sprites those games draw; everything kept is unchanged, so
 the arrays are identical (tests/test_torch_assets.py). Every sprite is
 generated deterministically in numpy from a seed that depends only on
 its name, and packed into one `uint8[N, S, S, 4]` array; games name
@@ -148,6 +148,8 @@ _AGENT_COLORS = {
     "blue": (0.35, 0.55, 0.95),
     "green": (0.4, 0.8, 0.4),
     "pink": (0.95, 0.55, 0.75),
+    "red": (0.9, 0.3, 0.3),
+    "grey": (0.6, 0.6, 0.65),
     "yellow": (0.95, 0.85, 0.3),
 }
 
@@ -295,6 +297,75 @@ def _particle():
 
 
 # ---------------------------------------------------------------------------
+# Climber (games/climber/tilemap.cpp:10-25: 4 tile themes Blue/Green/Yellow/
+# Brown; common_systems.h:61: agent themes Blue/Green/Grey/Red; swimming
+# enemy + yellow crystal)
+# ---------------------------------------------------------------------------
+
+CLIMBER_TILE_THEMES = ("blue", "green", "yellow", "brown")
+_CLIMBER_TILE_COLORS = {
+    "blue": (0.35, 0.5, 0.85),
+    "green": (0.35, 0.75, 0.35),
+    "yellow": (0.9, 0.8, 0.3),
+    "brown": (0.6, 0.42, 0.25),
+}
+CLIMBER_AGENT_THEMES = ("blue", "green", "grey", "red")
+
+
+def _register_climber_tiles():
+    for theme in CLIMBER_TILE_THEMES:
+        c = _CLIMBER_TILE_COLORS[theme]
+
+        def mid(th=theme, c=c):
+            return _textured_tile(
+                f"ctile_mid_{th}", c, border=tuple(v * 0.75 for v in c)
+            )
+
+        def top(th=theme, c=c):
+            img = _textured_tile(
+                f"ctile_top_{th}", c, border=tuple(v * 0.75 for v in c)
+            )
+            x, y = _grid()
+            band = y < 0.28
+            img[..., :3] = np.where(
+                band[..., None],
+                np.asarray(tuple(min(v * 1.35, 1.0) for v in c), np.float32)
+                * _noise(f"ct_{th}", 0.92, 1.08)[..., None],
+                img[..., :3],
+            )
+            return img
+
+        _REGISTRY[f"ctile_mid_{theme}"] = mid
+        _REGISTRY[f"ctile_top_{theme}"] = top
+
+
+@sprite("crystal")
+def _crystal():
+    # Stand-in for assets/misc_assets/yellowCrystal.png (climber tilemap.cpp:25)
+    img = _blank()
+    x, y = _grid()
+    diamond = np.clip((0.38 - (np.abs(x - 0.5) + np.abs(y - 0.5))) * S / 1.5, 0, 1)
+    img = _fill(img, diamond, (0.95, 0.85, 0.2))
+    facet = np.clip((0.2 - (np.abs(x - 0.5) + np.abs(y - 0.45))) * S / 1.5, 0, 1)
+    img = _fill(img, facet, (1.0, 0.95, 0.55))
+    return img
+
+
+def _register_swimmer():
+    # Stand-in for assets/platformer/enemySwimming_{1,2}.png (tilemap.cpp:21-22)
+    def swim(phase):
+        img = _blank()
+        img = _fill(img, _disc(0.5, 0.5, 0.3), (0.85, 0.4, 0.75))
+        # fin flaps between frames
+        img = _fill(img, _box(0.1, 0.35 + phase * 0.15, 0.3, 0.6 + phase * 0.1), (0.7, 0.3, 0.6))
+        img = _fill(img, _disc(0.62, 0.44, 0.05), (0.05, 0.05, 0.08))
+        return img
+
+    _REGISTRY["swimmer"] = lambda: swim(0.0)
+    _REGISTRY["swimmer_move"] = lambda: swim(1.0)
+
+
+# ---------------------------------------------------------------------------
 # Bossfight (games/bossfight/common_systems.cpp:48-72, bossfight.cpp:70-73):
 # 4 boss ships, 4 player ships, 3 laser colors, shield, 3 meteor barriers,
 # 5 explosion frames
@@ -407,8 +478,11 @@ _register_crates()
 _register_enemies()
 _register_saw()
 _register_agents()
+_register_climber_tiles()
+_register_swimmer()
 _register_explosions()
 _register_bossfight()
+_register_agents(themes=CLIMBER_AGENT_THEMES, prefix="climber")
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Compositor pieces of the port (procgen2_tpu/render/compositor.py):
 the stamp banks and pixel-snapped stamp groups that the scene kernel and
-the stamp-over-frame kernel blend.
+the stamp kernels blend or sum.
 
 Stamps are blended in painter order on every device, which is the TPU's
 semantics (`compositor.composite_stamps` on the TPU kernel path). The JAX
@@ -56,3 +56,15 @@ def composite_stamps(img, prem_bank, var_idx, r0, c0, alives=None,
     (`_premultiply_bank`, once per bank and device)."""
     return stamp_kernel.composite(
         img, [stamp_group(prem_bank, var_idx, r0, c0, alives, alpha)])
+
+
+def stamps_from_pixel_bank(prem_bank, var_idx, r0, c0, alives=None,
+                           alpha=None):
+    """Sum K pixel-snapped stamps per env into a zeroed frame, in slot
+    order: one stamp-sum kernel launch on the card. Returns premultiplied
+    (rgbp bf16 [N, 3, OBS, OBS], a bf16 [N, 1, OBS, OBS]). Unlike the JAX
+    function, the bank comes premultiplied (`_premultiply_bank`), and the
+    sum is the TPU kernel's ordered bf16 sum on every device (the JAX CPU
+    path sums by matmul, in another order)."""
+    return stamp_kernel.stamps(
+        *stamp_group(prem_bank, var_idx, r0, c0, alives, alpha), OBS)

@@ -1,31 +1,41 @@
-// Stamp-over-frame kernel for Hopper (sm_90a): K premultiplied P x P
-// stamps per env alpha-blended OVER a given frame in slot (painter)
-// order, for 1 to 4 stamp groups in one launch.
+// Stamp kernels for Hopper (sm_90a), one nvcc build:
 //
-// Replaces the Pallas TPU kernel procgen2_tpu/render/stamp_kernel.py
-// `_kernel_blend` (launched by `_composite`, entry `composite_tpu`, called
-// from `compositor.composite_stamps`). One launch over several groups is
-// the same as one call per group in order: per pixel, painter order runs
+// (B3) stamp_composite_kernel: K premultiplied P x P stamps per env
+// alpha-blended OVER a given frame in slot (painter) order, for 1 to 4
+// stamp groups in one launch. Replaces the Pallas TPU kernel
+// procgen2_tpu/render/stamp_kernel.py `_kernel_blend` (launched by
+// `_composite`, entry `composite_tpu`, called from
+// `compositor.composite_stamps`). One launch over several groups is the
+// same as one call per group in order: per pixel, painter order runs
 // through all slots of group 0, then group 1, and so on.
-//
-// What it computes, per env e and output pixel (r, c): the frame's three
-// bf16 values, then, for each group in order, `blend_stamps` (stamps.cuh):
-// each slot in order, skipped where scale == 0 or var is outside [0, V);
-// bank[var] placed at (r0, c0) clipped to [-P, OBS]; under it
+// Per env e and output pixel (r, c): the frame's three bf16 values, then,
+// for each group in order, `blend_stamps` (stamps.cuh): each slot in
+// order, skipped where scale == 0 or var is outside [0, V); bank[var]
+// placed at (r0, c0) clipped to [-P, OBS]; under it
 // contrib = bf16(texel * scale) and frame = bf16(bf16(frame * bf16(1 - a))
 // + rgb), every op rounded on its own (no FMA).
 //
-// The TPU kernel's lane/sublane rolls, its tile-aligned W-row window and
-// its f32 bank padded to 128 lanes answer TPU layout rules; what they
+// (B4) stamp_sum_kernel: the K premultiplied stamps of one group summed
+// into a zeroed 4-channel frame (rgb * a, a). Replaces the Pallas TPU
+// kernel procgen2_tpu/render/stamp_kernel.py `_kernel` (launched by
+// `_stamps`, entry `stamps_tpu`, called from
+// `compositor.stamps_from_pixel_bank`). Per env e and output pixel
+// (r, c): four zeros, then `sum_stamps` (stamps.cuh): the same slot skip
+// and placement as B3; under the stamp f[ch] = bf16(f[ch] +
+// bf16(texel * scale)) in slot order.
+//
+// The TPU kernels' lane/sublane rolls, their tile-aligned W-row window and
+// their f32 bank padded to 128 lanes answer TPU layout rules; what they
 // compute is the placement above, so none of them is carried over.
 //
-// Design: one thread per output pixel, a block of 256 threads covers 4
-// rows of one env, blockIdx.x is the env. Each pixel's blend chain is
-// independent: no synchronisation, no shared memory. What bounds it on
-// the card: the frame read and write (6 + 6 bytes per pixel, 100.7 MB
-// each way at 4096 envs) and the per-slot scalar loads that every thread
-// of a block repeats (var, scale, r0, c0: served from L1 as broadcasts);
-// a thread under no stamp only tests bounds.
+// Design (both): one thread per output pixel, a block of 256 threads
+// covers 4 rows of one env, blockIdx.x is the env. Each pixel's chain is
+// independent: no synchronisation, no shared memory. What bounds them on
+// the card: B3 reads and writes the frame (6 + 6 bytes per pixel, 100.7 MB
+// each way at 4096 envs), B4 only writes its 4-channel frame (8 bytes per
+// pixel, 134.2 MB at 4096 envs); both repeat the per-slot scalar loads in
+// every thread of a block (var, scale, r0, c0: served from L1 as
+// broadcasts); a thread under no stamp only tests bounds.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,9 +44,11 @@
 
 namespace {
 
+using stamps::StampGroup;
 using stamps::StampGroups;
 using stamps::blend_stamps;
 using stamps::ld;
+using stamps::sum_stamps;
 
 constexpr int kThreads = 256;
 
@@ -66,9 +78,27 @@ stamp_composite_kernel(const __nv_bfloat16* __restrict__ img,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+stamp_sum_kernel(const StampGroup group, __nv_bfloat16* __restrict__ out,
+                 int obs) {
+  const int e = blockIdx.x;
+  const int p = blockIdx.y * kThreads + threadIdx.x;
+  const int npix = obs * obs;
+  if (p >= npix) return;
+  const int r = p / obs;
+  const int c = p - r * obs;
+
+  float f[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  sum_stamps(f, group, e, r, c, obs);
+
+  __nv_bfloat16* o = out + (size_t)e * 4 * npix + p;
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) o[ch * npix] = __float2bfloat16_rn(f[ch]);
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Tensor pointers are device
+// Plain C entry point of B3 (bound with ctypes). Tensor pointers are device
 // pointers of contiguous tensors checked by the Python wrapper: img and
 // out bf16 [N, 3, obs, obs]; the per-group arrays (n_groups entries) are
 // host arrays. Returns 0, a cudaError_t, or -1 for a shape the kernel does
@@ -90,5 +120,32 @@ extern "C" int stamp_composite_launch(
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(img), groups,
       static_cast<__nv_bfloat16*>(out), obs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point of B4 (bound with ctypes). Tensor pointers are device
+// pointers of contiguous tensors checked by the Python wrapper: bank bf16
+// [V, 4, P, P]; var, r0, c0 int32 and scale f32 [N, K]; out bf16
+// [N, 4, obs, obs]. Returns 0, a cudaError_t, or -1 for a shape the kernel
+// does not take.
+extern "C" int stamp_sum_launch(const void* bank, const void* var,
+                                const void* scale, const void* r0,
+                                const void* c0, int V, int P, int K,
+                                void* out, int N, int obs, void* stream) {
+  if (V < 0 || P <= 0 || K < 0 || N < 0 || obs <= 0) return -1;
+  if (N == 0) return 0;
+  StampGroup group;
+  group.bank = static_cast<const __nv_bfloat16*>(bank);
+  group.var = static_cast<const int32_t*>(var);
+  group.scale = static_cast<const float*>(scale);
+  group.r0 = static_cast<const int32_t*>(r0);
+  group.c0 = static_cast<const int32_t*>(c0);
+  group.V = V;
+  group.P = P;
+  group.K = K;
+  const dim3 grid_dim(N, (obs * obs + kThreads - 1) / kThreads);
+  stamp_sum_kernel<<<grid_dim, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      group, static_cast<__nv_bfloat16*>(out), obs);
   return static_cast<int>(cudaGetLastError());
 }

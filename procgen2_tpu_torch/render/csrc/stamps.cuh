@@ -1,9 +1,10 @@
-// Painter-order stamp blending shared by the port's Hopper kernels
-// (scene_kernel.cu, stamp_kernel.cu): the bf16 rounding helpers, the
-// stamp-group descriptors and `blend_stamps`, the device function that
-// replaces the Pallas stamp loop (`_blend_stamps_ref` in
+// Stamp placement shared by the port's Hopper kernels (scene_kernel.cu,
+// stamp_kernel.cu): the bf16 rounding helpers, the stamp-group
+// descriptors, `blend_stamps`, the device function that replaces the
+// Pallas painter-order stamp loop (`_blend_stamps_ref` in
 // procgen2_tpu/render/scene_kernel.py, `_kernel_blend`'s body in
-// procgen2_tpu/render/stamp_kernel.py).
+// procgen2_tpu/render/stamp_kernel.py), and `sum_stamps`, the body of the
+// Pallas stamp-sum kernel (`_kernel` in procgen2_tpu/render/stamp_kernel.py).
 //
 // Every multiply, subtract and add is computed in f32 and rounded to bf16
 // (RNE) on its own, with __fmul_rn/__fsub_rn/__fadd_rn so that nothing is
@@ -55,13 +56,16 @@ __device__ __forceinline__ void blend(float f[3], const float rgb[3],
   }
 }
 
-// Painter-order stamps of one group over one pixel (r, c) of env e: each
-// slot in order; a slot with scale == 0 or var outside [0, V) is skipped;
-// bank[var] is placed at (r0, c0) clipped to [-P, obs]; under it
-// contrib = bf16(texel * scale) and frame = frame * (1 - a) + rgb.
-__device__ __forceinline__ void blend_stamps(float f[3],
-                                             const StampGroup& g, int e,
-                                             int r, int c, int obs) {
+// Calls fn(t, pp, s) for each slot of group g, in order, that covers
+// pixel (r, c) of env e: a slot with scale == 0 or var outside [0, V) is
+// skipped; bank[var] is placed at (r0, c0) clipped to [-P, obs]; t points
+// at the pixel's texel in channel 0 of bank[var] (channel ch at
+// t + ch * pp), s is the slot's scale. Inlined with its caller's fn, this
+// is one loop with no per-slot call or pointer test.
+template <typename Fn>
+__device__ __forceinline__ void for_each_stamp(const StampGroup& g, int e,
+                                               int r, int c, int obs,
+                                               Fn fn) {
   const size_t row = (size_t)e * g.K;
   const int pp = g.P * g.P;
   for (int k = 0; k < g.K; ++k) {
@@ -71,12 +75,40 @@ __device__ __forceinline__ void blend_stamps(float f[3],
     const int dr = r - clampi(g.r0[row + k], -g.P, obs);
     const int dc = c - clampi(g.c0[row + k], -g.P, obs);
     if (dr < 0 || dr >= g.P || dc < 0 || dc >= g.P) continue;
-    const __nv_bfloat16* t = g.bank + (size_t)v * 4 * pp + dr * g.P + dc;
-    float rgb[3];
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) rgb[ch] = bf(__fmul_rn(ld(t + ch * pp), s));
-    blend(f, rgb, bf(__fmul_rn(ld(t + 3 * pp), s)));
+    fn(g.bank + (size_t)v * 4 * pp + dr * g.P + dc, pp, s);
   }
+}
+
+// Painter-order stamps of one group over one pixel (r, c) of env e: under
+// each covering slot (`for_each_stamp`) contrib = bf16(texel * scale) and
+// frame = frame * (1 - a) + rgb.
+__device__ __forceinline__ void blend_stamps(float f[3],
+                                             const StampGroup& g, int e,
+                                             int r, int c, int obs) {
+  for_each_stamp(g, e, r, c, obs,
+                 [&](const __nv_bfloat16* t, int pp, float s) {
+                   float rgb[3];
+#pragma unroll
+                   for (int ch = 0; ch < 3; ++ch) {
+                     rgb[ch] = bf(__fmul_rn(ld(t + ch * pp), s));
+                   }
+                   blend(f, rgb, bf(__fmul_rn(ld(t + 3 * pp), s)));
+                 });
+}
+
+// Sum of the premultiplied stamps of one group at pixel (r, c) of env e
+// into f[4] (rgb * a, a): under each covering slot (`for_each_stamp`)
+// f[ch] = bf16(f[ch] + bf16(texel * scale)) for all four channels.
+__device__ __forceinline__ void sum_stamps(float f[4], const StampGroup& g,
+                                           int e, int r, int c, int obs) {
+  for_each_stamp(g, e, r, c, obs,
+                 [&](const __nv_bfloat16* t, int pp, float s) {
+#pragma unroll
+                   for (int ch = 0; ch < 4; ++ch) {
+                     const float contrib = bf(__fmul_rn(ld(t + ch * pp), s));
+                     f[ch] = bf(__fadd_rn(f[ch], contrib));
+                   }
+                 });
 }
 
 // Host side: fill a StampGroups from the per-group arrays of a plain C

@@ -1,8 +1,9 @@
 """Quantized-camera texel phases of the scene render (numpy).
 
-The port's own copy of what coinrun uses from the JAX package's
-`procgen2_tpu/render/phases.py`: the phase tables and the tile phase bank,
-unchanged, so the arrays are identical (tests/test_torch_assets.py).
+The port's own copy of what the ported games use from the JAX package's
+`procgen2_tpu/render/phases.py`: the phase tables, the window span, the
+expansion tables and the tile phase bank, unchanged, so the arrays are
+identical (tests/test_torch_assets.py).
 
 The render camera is quantized to 1/QP world units (render only; physics
 never sees it). With cam = m/QP the world x under obs pixel c is
@@ -15,6 +16,8 @@ m mod QP. So every quantity the renderer needs is a table lookup:
 
   * TR[j][pix]  tile offset from the window origin,
   * VV[j][pix]  texel row/col inside the tile,
+  * per-phase 0/1 expansion matrices Ey [OBS, WIN] / Ex [WIN, OBS] that
+    lift a WIN x WIN tile-resolution window to pixel resolution,
   * a pre-pixelized [QP*QP, kinds, 4, OBS, OBS] premultiplied tile bank,
     one entry per joint phase (the nearest-sampled image of an infinite
     plane of that kind).
@@ -32,7 +35,7 @@ from .atlas import SPRITE_SIZE
 
 S = SPRITE_SIZE
 WIN = 16  # tile-window size for ppu >= 4.8 games (<= 14 visible tiles
-#           + phase)
+#           + phase); wider views compute their own via `win()`
 
 
 def _frac_ppu(ppu: float) -> Fraction:
@@ -67,6 +70,33 @@ def phase_tables(ppu: float, obs: int = 64, qp: int = 4):
             TR[j, c] = t - t0
             VV[j, c] = ((wx - t) * S).__floor__()
     return TR, VV, float(t0_off)
+
+
+@functools.lru_cache(maxsize=None)
+def win(ppu: float, obs: int = 64, qp: int = 4) -> int:
+    """Tile-window span for this camera: the number of tile rows any
+    phase can touch (= grid pad width for the scene kernel)."""
+    TR, _, _ = phase_tables(ppu, obs, qp)
+    return int(TR.max()) + 1
+
+
+@functools.lru_cache(maxsize=None)
+def expansion_tables(ppu: float, obs: int = 64, qp: int = 4,
+                     win_size: int | None = None):
+    """0/1 phase expansion matrices: (EyTab f32 [qp, obs, W],
+    ExTab f32 [qp, W, obs]) for a W x W tile-resolution window
+    (default: this camera's own span from `win()`).
+    X = Ey[jy] @ window @ Ex[jx] lifts the window to pixel
+    resolution."""
+    TR, _, _ = phase_tables(ppu, obs, qp)
+    W = win_size if win_size is not None else int(TR.max()) + 1
+    if TR.max() >= W:
+        raise ValueError(f"window {W} is narrower than the span "
+                         f"{int(TR.max()) + 1} of ppu {ppu}")
+    eye = np.eye(W, dtype=np.float32)
+    EyTab = eye[TR]  # [qp, obs, W]
+    ExTab = np.swapaxes(EyTab, 1, 2).copy()  # [qp, W, obs]
+    return EyTab, ExTab
 
 
 @functools.lru_cache(maxsize=None)

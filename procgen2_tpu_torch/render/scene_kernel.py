@@ -1,22 +1,28 @@
-"""Scene kernel: tile layer + background + painter-order stamps of the
-quantized-camera scene render, for every game on the scene path.
+"""Scene kernels: tile layer + background + painter-order stamps of the
+quantized-camera scene render.
 
-`scene_raw` is the one entry point. A CUDA tensor goes to the hand-written
-Hopper kernel in `csrc/scene_kernel.cu` (it replaces the Pallas kernel
-`procgen2_tpu/render/scene_kernel.py::_scene_kernel_raw`, with its stamp
-loop `_blend_stamps_ref`); a CPU tensor goes to `scene_raw_reference`,
-the plain torch version with the same semantics. There is no fallback
-between the two: on a CUDA tensor the kernel builds and launches, or the
-call raises.
+Two entry points. `scene_raw` (B1) reads the kind field and the
+background from the padded tile grid through the phase offset table;
+every game on the scene path renders through it. `scene` (B5) reads them
+from a pre-expanded field X instead. A CUDA tensor goes to the
+hand-written Hopper kernels in `csrc/scene_kernel.cu` (they replace the
+Pallas kernels `procgen2_tpu/render/scene_kernel.py::_scene_kernel_raw`
+and `_scene_kernel`, with their stamp loop `_blend_stamps_ref`); a CPU
+tensor goes to `scene_raw_reference` / `scene_reference`, the plain torch
+versions with the same semantics. There is no fallback between the two:
+on a CUDA tensor the kernel builds and launches, or the call raises.
 
-Semantics (shared by both), per env and output pixel (r, c):
-  * y = ty0 + pad + TR[jy][r], x = tx0 + pad + TR[jx][c]; the kind G and
-    the background rgb are grid[y, x] and bg_bank[bg_i, :, y, x], 0 where
-    (y, x) lies outside the padded grid or bg_i outside the bank; jy and
-    jx are clamped to [0, qp);
+Semantics (shared by all), per env and output pixel (r, c):
+  * the kind G and the background rgb under the pixel:
+      - scene_raw: y = ty0 + pad + TR[jy][r], x = tx0 + pad + TR[jx][c];
+        G and rgb are grid[y, x] and bg_bank[bg_i, :, y, x], 0 where
+        (y, x) lies outside the padded grid or bg_i outside the bank; jy
+        and jx are clamped to [0, qp), the phase is jy * qp + jx;
+      - scene: G = X[0, r, c] and rgb = X[1:4, r, c]; the phase is
+        p_joint clamped to [0, NPH);
   * each tile entry i in order, where G == entry_kind[i] and entry_theme[i]
     is -1 or the env's theme: frame = frame * (1 - a) + rgb from
-    tile_bank[jy * qp + jx, i];
+    tile_bank[phase, i];
   * each stamp group (bank [V, 4, P, P], var, scale, r0, c0 [N, K]) in
     order, each slot in order: a slot with scale == 0 or var outside
     [0, V) is skipped; bank[var] is placed at (r0, c0) clipped to
@@ -31,13 +37,24 @@ import functools
 
 import torch
 
-from .stamp_kernel import blend_groups_reference, check, check_groups
+from .stamp_kernel import (_I, _IP, _P, _PP, _ints, blend_groups_reference,
+                           check, check_groups, group_args)
 
 _BF16 = torch.bfloat16
 
 
-def _blend(frame, rgb, a):
-    return frame * (1.0 - a) + rgb
+def _blend_tiles(frame, G, ph, theme, tile_bank, entry_kind, entry_theme):
+    """The tile entries in order over `frame` bf16 [N, 3, obs, obs], where
+    the kind field G [N, obs, obs] matches the entry's kind (and the env's
+    theme its theme), from tile_bank[ph] (ph int [N] in range)."""
+    for i, (kv, tv) in enumerate(zip(entry_kind, entry_theme)):
+        m = G == int(kv)
+        if tv >= 0:
+            m = m & (theme == int(tv))[:, None, None]
+        t = tile_bank[ph, i].to(_BF16)  # [N, 4, obs, obs]
+        frame = torch.where(m[:, None], frame * (1.0 - t[:, 3:4]) + t[:, :3],
+                            frame)
+    return frame
 
 
 def scene_raw_reference(gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank,
@@ -72,15 +89,24 @@ def scene_raw_reference(gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank,
                  yc[:, None, :, None], xc[:, None, None, :]].to(_BF16)
     frame = torch.where(bg_ok[:, None], bg, torch.zeros_like(bg))
 
-    ph = py * qp + px
-    for i, (kv, tv) in enumerate(zip(entry_kind, entry_theme)):
-        m = G == int(kv)
-        if tv >= 0:
-            m = m & (theme == int(tv))[:, None, None]
-        t = tile_bank[ph, i].to(_BF16)  # [N, 4, obs, obs]
-        frame = torch.where(m[:, None], _blend(frame, t[:, :3], t[:, 3:4]),
-                            frame)
+    frame = _blend_tiles(frame, G, py * qp + px, theme, tile_bank,
+                         entry_kind, entry_theme)
+    return blend_groups_reference(frame, groups)
 
+
+def scene_reference(X, p_joint, theme, tile_bank, entry_kind, entry_theme,
+                    groups, obs):
+    """Plain torch version of the expanded-field scene kernel (see the
+    module docstring).
+
+    X bf16 [N, 4, obs, obs] (channel 0 the kind field, 1-3 the
+    background rgb); p_joint/theme int [N]; tile_bank bf16
+    [NPH, NE, 4, obs, obs]; entry_kind/entry_theme int sequences of NE;
+    groups as `scene_raw_reference`. Returns bf16 [N, 3, obs, obs]."""
+    X = X.to(_BF16)
+    ph = p_joint.long().clamp(0, tile_bank.shape[0] - 1)
+    frame = _blend_tiles(X[:, 1:4], X[:, 0].float(), ph, theme, tile_bank,
+                         entry_kind, entry_theme)
     return blend_groups_reference(frame, groups)
 
 
@@ -89,58 +115,66 @@ def scene_raw_reference(gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank,
 # ---------------------------------------------------------------------------
 
 _MAX_ENTRIES = 32  # kMaxEntries in csrc/scene_kernel.cu
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_IP = ctypes.POINTER(ctypes.c_int)
-_PP = ctypes.POINTER(ctypes.c_void_p)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """Build (or find) and load the kernel once per process. Returns
-    (launch, build record); `launch` takes inputs `scene_raw` has checked
-    and writes `out`. Needs nvcc."""
+def _kernels():
+    """Build (or find) and load both kernels once per process. Returns
+    ({"scene_raw": launch, "scene": launch}, build record); each launch
+    takes inputs its wrapper has checked and writes `out`. Needs nvcc."""
     from . import _build
 
     lib, record = _build.load("scene_kernel")
-    fn = lib.scene_raw_launch
+    raw_fn = lib.scene_raw_launch
+    raw_fn.restype = ctypes.c_int
+    raw_fn.argtypes = ([_P] * 10 + [_IP, _IP, _I, _I] + [_PP] * 5
+                       + [_IP, _IP, _IP, _P] + [_I] * 6 + [_P])
+    fn = lib.scene_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([_P] * 10 + [_IP, _IP, _I, _I] + [_PP] * 5
-                   + [_IP, _IP, _IP, _P] + [_I] * 6 + [_P])
+    fn.argtypes = ([_P] * 4 + [_IP, _IP, _I, _I] + [_PP] * 5
+                   + [_IP, _IP, _IP, _P] + [_I] * 3 + [_P])
 
-    def launch(gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab,
-               tile_bank, entry_kind, entry_theme, banks, var, scale, r0,
-               c0, pad, out):
-        ng, ne = len(banks), len(entry_kind)
-
-        def ptrs(ts):
-            return (ctypes.c_void_p * max(ng, 1))(*[t.data_ptr() for t in ts])
-
-        def ints(vs, n):
-            return (ctypes.c_int * max(n, 1))(*vs)
-
+    def raw_launch(gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab,
+                   tile_bank, entry_kind, entry_theme, groups, pad, out):
         stream = torch.cuda.current_stream(gridp.device).cuda_stream
-        rc = fn(gridp.data_ptr(), ty0.data_ptr(), tx0.data_ptr(),
-                jy.data_ptr(), jx.data_ptr(), bg_i.data_ptr(),
-                theme.data_ptr(), bg_bank.data_ptr(), tr_tab.data_ptr(),
-                tile_bank.data_ptr(), ints(entry_kind, ne),
-                ints(entry_theme, ne), ne, ng, ptrs(banks), ptrs(var),
-                ptrs(scale), ptrs(r0), ptrs(c0),
-                ints([b.shape[0] for b in banks], ng),
-                ints([b.shape[-1] for b in banks], ng),
-                ints([v.shape[1] for v in var], ng), out.data_ptr(),
-                gridp.shape[0], gridp.shape[1], bg_bank.shape[0],
-                tr_tab.shape[0], out.shape[-1], pad, stream)
+        rc = raw_fn(gridp.data_ptr(), ty0.data_ptr(), tx0.data_ptr(),
+                    jy.data_ptr(), jx.data_ptr(), bg_i.data_ptr(),
+                    theme.data_ptr(), bg_bank.data_ptr(), tr_tab.data_ptr(),
+                    tile_bank.data_ptr(), _ints(entry_kind),
+                    _ints(entry_theme), len(entry_kind), *group_args(groups),
+                    out.data_ptr(), gridp.shape[0], gridp.shape[1],
+                    bg_bank.shape[0], tr_tab.shape[0], out.shape[-1], pad,
+                    stream)
         if rc != 0:
             raise RuntimeError(f"scene kernel launch failed: code {rc}")
 
-    return launch, record
+    def launch(X, p_joint, theme, tile_bank, entry_kind, entry_theme,
+               groups, out):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = fn(X.data_ptr(), p_joint.data_ptr(), theme.data_ptr(),
+                tile_bank.data_ptr(), _ints(entry_kind), _ints(entry_theme),
+                len(entry_kind), *group_args(groups), out.data_ptr(),
+                X.shape[0], tile_bank.shape[0], out.shape[-1], stream)
+        if rc != 0:
+            raise RuntimeError(f"expanded-field scene kernel launch failed: "
+                               f"code {rc}")
+
+    return dict(scene_raw=raw_launch, scene=launch), record
 
 
 def build():
-    """Build (or find) and load the kernel; returns the build record
+    """Build (or find) and load the kernels; returns the build record
     (seconds, compiler output). Needs nvcc."""
-    return _kernel()[1]
+    return _kernels()[1]
+
+
+def _check_entries(entry_kind, entry_theme):
+    if len(entry_theme) != len(entry_kind):
+        raise ValueError("entry_kind and entry_theme differ in length")
+    if len(entry_kind) > _MAX_ENTRIES:
+        raise ValueError(f"the kernels take at most {_MAX_ENTRIES} tile "
+                         "entries")
+    return [int(k) for k in entry_kind], [int(t) for t in entry_theme]
 
 
 def scene_raw(gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab,
@@ -165,22 +199,44 @@ def scene_raw(gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab,
     check(bg_bank, _BF16, (bg_bank.shape[0], 3, GP, GP), dev, "bg_bank")
     check(tr_tab, i32, (qp, 1, obs), dev, "tr_tab")
     check(tile_bank, _BF16, (qp * qp, ne, 4, obs, obs), dev, "tile_bank")
-    if len(entry_theme) != ne:
-        raise ValueError("entry_kind and entry_theme differ in length")
-    if ne > _MAX_ENTRIES:
-        raise ValueError(f"the kernel takes at most {_MAX_ENTRIES} tile "
-                         "entries")
+    kinds, themes = _check_entries(entry_kind, entry_theme)
     check_groups(groups, N, dev)
-    launch, _ = _kernel()
     out = torch.empty((N, 3, obs, obs), dtype=_BF16, device=dev)
-    banks, var, scale, r0, c0 = (list(x) for x in zip(*groups)) if groups \
-        else ([], [], [], [], [])
-    launch(
+    _kernels()[0]["scene_raw"](
         gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
-        [int(k) for k in entry_kind], [int(t) for t in entry_theme],
-        banks, var, scale, r0, c0, int(pad), out)
+        kinds, themes, groups, int(pad), out)
     scene_raw.launches += 1
     return out
 
 
 scene_raw.launches = 0  # kernel launches; the CPU path does not count
+
+
+def scene(X, p_joint, theme, tile_bank, entry_kind, entry_theme, groups,
+          obs):
+    """Render the scene from an expanded field (arguments and result as
+    `scene_reference`). CUDA tensors launch the kernel (dtypes and shapes
+    are checked, nothing is converted); CPU tensors run the plain
+    version."""
+    if X.device.type == "cpu":
+        return scene_reference(X, p_joint, theme, tile_bank, entry_kind,
+                               entry_theme, groups, obs)
+    if X.device.type != "cuda":
+        raise ValueError(f"scene runs on cpu or cuda, not {X.device}")
+    dev = X.device
+    N = X.shape[0]
+    check(X, _BF16, (N, 4, obs, obs), dev, "X")
+    check(p_joint, torch.int32, (N,), dev, "p_joint")
+    check(theme, torch.int32, (N,), dev, "theme")
+    check(tile_bank, _BF16, (tile_bank.shape[0], len(entry_kind), 4, obs,
+                             obs), dev, "tile_bank")
+    kinds, themes = _check_entries(entry_kind, entry_theme)
+    check_groups(groups, N, dev)
+    out = torch.empty((N, 3, obs, obs), dtype=_BF16, device=dev)
+    _kernels()[0]["scene"](X, p_joint, theme, tile_bank, kinds, themes,
+                           groups, out)
+    scene.launches += 1
+    return out
+
+
+scene.launches = 0  # kernel launches; the CPU path does not count

@@ -1,20 +1,25 @@
-"""Stamp-over-frame kernel: K premultiplied stamps per env alpha-blended
-OVER a given frame in slot (painter) order, for 1 to 4 stamp groups.
+"""Stamp kernels: K premultiplied stamps per env, from one or more stamp
+groups, either alpha-blended OVER a given frame in slot (painter) order
+(B3, `composite`) or summed into a zeroed 4-channel frame (B4, `stamps`).
 
-`composite` is the entry point. A CUDA tensor goes to the hand-written
-Hopper kernel in `csrc/stamp_kernel.cu` (it replaces the Pallas kernel
-`procgen2_tpu/render/stamp_kernel.py::_kernel_blend`, entry
-`composite_tpu`); a CPU tensor goes to `composite_reference`, the plain
-torch version with the same semantics. There is no fallback between the
+A CUDA tensor goes to the hand-written Hopper kernels in
+`csrc/stamp_kernel.cu`: `composite` replaces the Pallas kernel
+`procgen2_tpu/render/stamp_kernel.py::_kernel_blend` (entry
+`composite_tpu`) and `stamps` replaces `_kernel` (entry `stamps_tpu`). A
+CPU tensor goes to `composite_reference` / `stamps_reference`, the plain
+torch versions with the same semantics. There is no fallback between the
 two: on a CUDA tensor the kernel builds and launches, or the call raises.
 
-Semantics (shared by both), per env and output pixel (r, c), for each
+Semantics (shared by all), per env and output pixel (r, c), for each
 stamp group (bank [V, 4, P, P], var, scale, r0, c0 [N, K]) in order and
 each slot in order: a slot with scale == 0 or var outside [0, V) is
 skipped; bank[var] is placed at (r0, c0) clipped to [-P, obs]; under it
-contrib = bf16(texel * scale) and frame = frame * (1 - a) + rgb, every
-bf16 multiply, subtract and add rounded on its own (RNE). One call over
-several groups equals one call per group in order.
+contrib = bf16(texel * scale), and
+  * composite: frame = frame * (1 - a) + rgb, every bf16 multiply,
+    subtract and add rounded on its own (RNE). One call over several
+    groups equals one call per group in order;
+  * stamps (one group): acc = acc + contrib on all four channels, from
+    zero, each add rounded to bf16 on its own.
 """
 from __future__ import annotations
 
@@ -30,29 +35,54 @@ MAX_GROUPS = 4  # stamps::kMaxGroups in csrc/stamps.cuh
 def blend_groups_reference(frame, groups):
     """Plain torch painter-order blend of stamp groups over `frame` bf16
     [N, 3, obs, obs] (the semantics above); returns the new frame."""
-    N, _, obs, _ = frame.shape
+    obs = frame.shape[-1]
     rr = torch.arange(obs, device=frame.device)
     for bank, var, scale, r0, c0 in groups:
         bank = bank.to(_BF16)
-        V, _, P, _ = bank.shape
         for k in range(var.shape[1]):
-            s = scale[:, k].to(torch.float32)
-            v = var[:, k].long()
-            live = (s != 0) & (v >= 0) & (v < V)
-            dr = rr[None] - r0[:, k].long().clamp(-P, obs)[:, None]  # [N, obs]
-            dc = rr[None] - c0[:, k].long().clamp(-P, obs)[:, None]
-            patch = bank[v.clamp(0, V - 1)]  # [N, 4, P, P]
-            rows = patch.gather(2, dr.clamp(0, P - 1)[:, None, :, None]
-                                .expand(N, 4, obs, P))
-            tex = rows.gather(3, dc.clamp(0, P - 1)[:, None, None, :]
-                              .expand(N, 4, obs, obs))
-            contrib = (tex.to(torch.float32)
-                       * s[:, None, None, None]).to(_BF16)
-            m = (live[:, None, None] & ((dr >= 0) & (dr < P))[:, :, None]
-                 & ((dc >= 0) & (dc < P))[:, None, :])
+            contrib, m = _placed(bank, var[:, k], scale[:, k], r0[:, k],
+                                 c0[:, k], obs, rr)
             blended = frame * (1.0 - contrib[:, 3:4]) + contrib[:, :3]
             frame = torch.where(m[:, None], blended, frame)
     return frame
+
+
+def _placed(bank, v, s, r0, c0, obs, rr):
+    """Slot k's stamp for every env: (contrib bf16 [N, 4, obs, obs] =
+    bf16(texel * scale), mask bool [N, obs, obs] of the pixels it covers,
+    skipped slots covering none)."""
+    N = v.shape[0]
+    V, _, P, _ = bank.shape
+    s = s.to(torch.float32)
+    v = v.long()
+    live = (s != 0) & (v >= 0) & (v < V)
+    dr = rr[None] - r0.long().clamp(-P, obs)[:, None]  # [N, obs]
+    dc = rr[None] - c0.long().clamp(-P, obs)[:, None]
+    patch = bank[v.clamp(0, V - 1)]  # [N, 4, P, P]
+    rows = patch.gather(2, dr.clamp(0, P - 1)[:, None, :, None]
+                        .expand(N, 4, obs, P))
+    tex = rows.gather(3, dc.clamp(0, P - 1)[:, None, None, :]
+                      .expand(N, 4, obs, obs))
+    contrib = (tex.to(torch.float32) * s[:, None, None, None]).to(_BF16)
+    m = (live[:, None, None] & ((dr >= 0) & (dr < P))[:, :, None]
+         & ((dc >= 0) & (dc < P))[:, None, :])
+    return contrib, m
+
+
+def stamps_reference(prem_bank, var, scale, r0, c0, obs):
+    """Plain torch version of the stamp-sum kernel (B4): prem_bank bf16
+    [V, 4, P, P]; var int [N, K]; scale f32 [N, K]; r0/c0 int [N, K].
+    Returns (rgbp bf16 [N, 3, obs, obs], a bf16 [N, 1, obs, obs]), the
+    slot-ordered bf16 sums (the semantics above)."""
+    bank = prem_bank.to(_BF16)
+    N = var.shape[0]
+    rr = torch.arange(obs, device=var.device)
+    acc = torch.zeros((N, 4, obs, obs), dtype=_BF16, device=var.device)
+    for k in range(var.shape[1]):
+        contrib, m = _placed(bank, var[:, k], scale[:, k], r0[:, k],
+                             c0[:, k], obs, rr)
+        acc = torch.where(m[:, None], acc + contrib, acc)
+    return acc[:, :3], acc[:, 3:4]
 
 
 def composite_reference(img, groups):
@@ -72,44 +102,65 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 
 
+def _ints(vs):
+    return (ctypes.c_int * max(len(vs), 1))(*vs)
+
+
+def group_args(groups):
+    """The stamp groups as the C entry points take them: (count, then host
+    arrays of the banks', var's, scale's, r0's and c0's pointers, and of
+    each group's V, P and K)."""
+    banks, var, scale, r0, c0 = (list(x) for x in zip(*groups)) if groups \
+        else ([], [], [], [], [])
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * max(len(ts), 1))(*[t.data_ptr() for t in ts])
+
+    return (len(groups), ptrs(banks), ptrs(var), ptrs(scale), ptrs(r0),
+            ptrs(c0), _ints([b.shape[0] for b in banks]),
+            _ints([b.shape[-1] for b in banks]),
+            _ints([v.shape[1] for v in var]))
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """Build (or find) and load the kernel once per process. Returns
-    (launch, build record); `launch` takes inputs `composite` has checked
-    and writes `out`. Needs nvcc."""
+def _kernels():
+    """Build (or find) and load both kernels once per process. Returns
+    ({"composite": launch, "stamps": launch}, build record); each launch
+    takes inputs its wrapper has checked and writes `out`. Needs nvcc."""
     from . import _build
 
     lib, record = _build.load("stamp_kernel")
     fn = lib.stamp_composite_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [_P, _I] + [_PP] * 5 + [_IP] * 3 + [_P, _I, _I, _P]
+    sum_fn = lib.stamp_sum_launch
+    sum_fn.restype = ctypes.c_int
+    sum_fn.argtypes = [_P] * 5 + [_I] * 3 + [_P, _I, _I, _P]
 
-    def launch(img, groups, out):
-        ng = len(groups)
-        banks, var, scale, r0, c0 = (list(x) for x in zip(*groups))
-
-        def ptrs(ts):
-            return (ctypes.c_void_p * ng)(*[t.data_ptr() for t in ts])
-
-        def ints(vs):
-            return (ctypes.c_int * ng)(*vs)
-
+    def composite_launch(img, groups, out):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        rc = fn(img.data_ptr(), ng, ptrs(banks), ptrs(var), ptrs(scale),
-                ptrs(r0), ptrs(c0), ints([b.shape[0] for b in banks]),
-                ints([b.shape[-1] for b in banks]),
-                ints([v.shape[1] for v in var]), out.data_ptr(),
+        rc = fn(img.data_ptr(), *group_args(groups), out.data_ptr(),
                 img.shape[0], img.shape[-1], stream)
         if rc != 0:
             raise RuntimeError(f"stamp kernel launch failed: code {rc}")
 
-    return launch, record
+    def stamps_launch(group, out):
+        bank, var, scale, r0, c0 = group
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = sum_fn(bank.data_ptr(), var.data_ptr(), scale.data_ptr(),
+                    r0.data_ptr(), c0.data_ptr(), bank.shape[0],
+                    bank.shape[-1], var.shape[1], out.data_ptr(),
+                    out.shape[0], out.shape[-1], stream)
+        if rc != 0:
+            raise RuntimeError(f"stamp-sum kernel launch failed: code {rc}")
+
+    return dict(composite=composite_launch, stamps=stamps_launch), record
 
 
 def build():
-    """Build (or find) and load the kernel; returns the build record
+    """Build (or find) and load the kernels; returns the build record
     (seconds, compiler output). Needs nvcc."""
-    return _kernel()[1]
+    return _kernels()[1]
 
 
 def check_groups(groups, N, device):
@@ -157,11 +208,31 @@ def composite(img, groups):
     if not groups:
         raise ValueError("composite needs at least one stamp group")
     check_groups(groups, N, dev)
-    launch, _ = _kernel()
     out = torch.empty_like(img)
-    launch(img, groups, out)
+    _kernels()[0]["composite"](img, groups, out)
     composite.launches += 1
     return out
 
 
 composite.launches = 0  # kernel launches; the CPU path does not count
+
+
+def stamps(prem_bank, var, scale, r0, c0, obs):
+    """Sum the stamps of one group into a zeroed frame (arguments and
+    result as `stamps_reference`). CUDA tensors launch the kernel
+    (dtypes, shapes and devices are checked, nothing is converted); CPU
+    tensors run the plain version."""
+    if var.device.type == "cpu":
+        return stamps_reference(prem_bank, var, scale, r0, c0, obs)
+    if var.device.type != "cuda":
+        raise ValueError(f"stamps runs on cpu or cuda, not {var.device}")
+    group = (prem_bank, var, scale, r0, c0)
+    check_groups([group], var.shape[0], var.device)
+    out = torch.empty((var.shape[0], 4, obs, obs), dtype=_BF16,
+                      device=var.device)
+    _kernels()[0]["stamps"](group, out)
+    stamps.launches += 1
+    return out[:, :3], out[:, 3:4]
+
+
+stamps.launches = 0  # kernel launches; the CPU path does not count

@@ -1,15 +1,18 @@
 """The port's own asset modules (procgen2_tpu_torch/render/atlas.py and
-phases.py, numpy copies cut to what coinrun and bossfight draw) against
-the JAX package's: every bank either game builds must be identical, array
-for array, and so must the asset tables and phase tables they come from."""
+phases.py, numpy copies cut to what coinrun, bossfight and climber draw)
+against the JAX package's: every bank these games build must be
+identical, array for array, and so must the asset tables, phase tables,
+window spans and expansion tables they come from."""
 import numpy as np
 import pytest
 
 from procgen2_tpu.games import bossfight as jboss
+from procgen2_tpu.games import climber as jclimb
 from procgen2_tpu.games import coinrun as jcoin
 from procgen2_tpu.render import atlas as jatlas
 from procgen2_tpu.render import phases as jphases
 from procgen2_tpu_torch.games import bossfight as tboss
+from procgen2_tpu_torch.games import climber as tclimb
 from procgen2_tpu_torch.games import coinrun as tcoin
 from procgen2_tpu_torch.render import atlas as tatlas
 from procgen2_tpu_torch.render import phases as tphases
@@ -55,10 +58,40 @@ def test_bossfight_banks_identical(fn):
     same_kept(getattr(jboss, fn)(), getattr(tboss, fn)(), f"bossfight.{fn}")
 
 
+@pytest.mark.parametrize("fn", ["_assets", "_stamp_banks", "_scene_assets"])
+def test_climber_banks_identical(fn):
+    args = (4,) if fn == "_scene_assets" else ()
+    same_kept(getattr(jclimb, fn)(*args), getattr(tclimb, fn)(*args),
+              f"climber.{fn}")
+
+
+def test_climber_merged_bank_identical():
+    """The render's one stamp group bank, as climber.py:581-582 builds it."""
+    banks = jclimb._stamp_banks()
+    same(np.concatenate([np.asarray(banks["moving"]),
+                         np.asarray(banks["agent"])], axis=0),
+         tclimb._merged_bank(), "climber merged bank")
+
+
+@pytest.mark.parametrize("ppu", [3.2, 4.8, 16.0])
+@pytest.mark.parametrize("qp", [1, 4])
+def test_win_and_expansion_tables_identical(ppu, qp):
+    assert tphases.win(ppu, 64, qp) == jphases.win(ppu, 64, qp)
+    same(jphases.expansion_tables(ppu, 64, qp),
+         tphases.expansion_tables(ppu, 64, qp), f"expansion_tables({ppu})")
+    W = jphases.win(ppu, 64, qp) + 3
+    same(jphases.expansion_tables(ppu, 64, qp, win_size=W),
+         tphases.expansion_tables(ppu, 64, qp, win_size=W),
+         f"expansion_tables({ppu}, win_size={W})")
+    with pytest.raises(ValueError):
+        tphases.expansion_tables(ppu, 64, qp, win_size=W - 4)
+
+
 def test_tables_identical():
     for name in ("WALL_THEMES", "WALKING_ENEMIES", "CRATE_TYPES",
                  "AGENT_THEMES", "BOSS_SHIP_COLORS", "PLAYER_SHIP_COLORS",
-                 "LASER_COLORS", "SPRITE_SIZE", "BG_SIZE"):
+                 "LASER_COLORS", "CLIMBER_TILE_THEMES",
+                 "CLIMBER_AGENT_THEMES", "SPRITE_SIZE", "BG_SIZE"):
         same(getattr(jatlas, name), getattr(tatlas, name), name)
     assert tphases.WIN == jphases.WIN
     for ppu in (tcoin.PPU, 16.0):

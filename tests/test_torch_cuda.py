@@ -1,7 +1,8 @@
-"""Tests of the port that need a CUDA card: the scene kernel and the
-stamp kernel against their plain torch versions (bitwise), the kernel
-wrappers' checks, threefry words on the card, and coinrun and bossfight on
-the card against the same games on the CPU.
+"""Tests of the port that need a CUDA card: the scene kernels (B1, B5)
+and the stamp kernels (B3, B4) against their plain torch versions
+(bitwise), the kernel wrappers' checks, threefry words on the card, and
+coinrun, bossfight and climber on the card against the same games on the
+CPU.
 
 They skip without a card. This file imports no jax, so it runs on a
 machine without it; there, skip the repo's conftest (which sets jax up):
@@ -16,6 +17,8 @@ import torch
 import chip_smoke
 import procgen2_tpu_torch as pt
 from procgen2_tpu_torch import random as R
+from procgen2_tpu_torch.games import climber
+from procgen2_tpu_torch.render import compositor
 from procgen2_tpu_torch.render import scene_kernel as sk
 from procgen2_tpu_torch.render import stamp_kernel as stk
 from procgen2_tpu_torch.utils import tree_map
@@ -125,6 +128,88 @@ def test_stamp_kernel_rejects_bad_inputs(dev):
         stk.composite(img, [])
 
 
+@pytest.mark.parametrize("n,seed", [(1, 0), (257, 1), (4096, 2)])
+def test_stamp_sum_kernel_matches_plain(dev, n, seed):
+    """B4 on groups with P = 8, 12 and 20 (chip_smoke.random_sum_groups:
+    variants out of range, scale 0, fractional scales, stamps off every
+    edge, overlaps): one launch each, bitwise equal to the plain version."""
+    for group in chip_smoke.random_sum_groups(n, dev, seed):
+        before = stk.stamps.launches
+        got = stk.stamps(*group, 64)
+        torch.cuda.synchronize()
+        assert stk.stamps.launches == before + 1
+        want = stk.stamps_reference(*group, 64)
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
+
+
+def test_stamp_sum_kernel_edge_cases(dev):
+    """Every stamp off the frame, every slot dead, or no slot: zeros."""
+    for b, v, s, r, c in chip_smoke.random_sum_groups(64, dev, 3):
+        for group in ((b, v, s, torch.full_like(r, 64), c),
+                      (b, v, torch.zeros_like(s), r, c),
+                      (b, v[:, :0].contiguous(), s[:, :0].contiguous(),
+                       r[:, :0].contiguous(), c[:, :0].contiguous())):
+            rgb, a = stk.stamps(*group, 64)
+            assert not rgb.any() and not a.any()
+
+
+def test_stamp_sum_kernel_rejects_bad_inputs(dev):
+    bank, var, scale, r0, c0 = chip_smoke.random_sum_groups(8, dev, 4)[0]
+    with pytest.raises(TypeError):
+        stk.stamps(bank.float(), var, scale, r0, c0, 64)
+    with pytest.raises(TypeError):
+        stk.stamps(bank, var, scale.double(), r0, c0, 64)
+    with pytest.raises(ValueError):
+        stk.stamps(bank, var, scale, r0[:4], c0, 64)
+    with pytest.raises(ValueError):
+        stk.stamps(bank.cpu(), var, scale, r0, c0, 64)
+
+
+@pytest.mark.parametrize("n,seed", [(1, 0), (257, 1), (4096, 2)])
+def test_field_scene_kernel_matches_plain(dev, n, seed):
+    """B5 on random scenes (chip_smoke.random_field: 5 tile entries, two
+    themed; joint phases out of range at both ends; two stamp groups)."""
+    args = chip_smoke.random_field(n, dev, seed)
+    before = sk.scene.launches
+    got = sk.scene(*args)
+    torch.cuda.synchronize()
+    assert sk.scene.launches == before + 1
+    assert torch.equal(_bits(got), _bits(sk.scene_reference(*args)))
+
+
+def test_field_scene_kernel_edge_cases(dev):
+    """No stamp groups; joint phases past either end read the end
+    phases."""
+    X, p, theme, tb, kinds, themes, groups, obs = chip_smoke.random_field(
+        64, dev, 3)
+    got = sk.scene(X, p, theme, tb, kinds, themes, [], obs)
+    assert torch.equal(_bits(got), _bits(
+        sk.scene_reference(X, p, theme, tb, kinds, themes, [], obs)))
+    nph = tb.shape[0]
+    for out_of_range, end in ((-5, 0), (nph + 3, nph - 1)):
+        a = sk.scene(X, torch.full_like(p, out_of_range), theme, tb, kinds,
+                     themes, groups, obs)
+        b = sk.scene(X, torch.full_like(p, end), theme, tb, kinds, themes,
+                     groups, obs)
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_field_scene_kernel_rejects_bad_inputs(dev):
+    X, p, theme, tb, kinds, themes, groups, obs = chip_smoke.random_field(
+        8, dev, 4)
+    with pytest.raises(TypeError):
+        sk.scene(X.float(), p, theme, tb, kinds, themes, groups, obs)
+    with pytest.raises(TypeError):
+        sk.scene(X, p.long(), theme, tb, kinds, themes, groups, obs)
+    with pytest.raises(ValueError):
+        sk.scene(X, p, theme, tb[:, :2], kinds, themes, groups, obs)
+    with pytest.raises(ValueError):
+        sk.scene(X, p, theme.cpu(), tb, kinds, themes, groups, obs)
+    with pytest.raises(ValueError):
+        sk.scene(X, p, theme, tb, kinds, themes[:3], groups, obs)
+
+
 def test_key_words_same_on_cuda(dev):
     k = R.split(R.key(17), 64)
     cpu = (R.split(k, 3), R.fold_in(k, 5), R.randint(k, (4,), -3, 1000),
@@ -219,3 +304,60 @@ def test_bossfight_on_card_matches_cpu(dev):
         assert torch.equal(ra, rb) and torch.equal(da, db)
     for a, b in zip(cpu[2], gpu[2]):
         assert torch.equal(a, b)
+
+
+def test_climber_on_card_matches_cpu(dev):
+    """make("climber") on the card against make(device="cpu"), with a lane
+    on a mob (death, 0) and a lane on its last crystal (+11), so that both
+    end and auto-reset on the card."""
+    n = 16
+    out = {}
+    for d in ("cpu", "cuda"):
+        env = pt.make("climber", device=d)
+        bank = env.generate_bank(R.key(5, env.device), n)
+        state, ts = env.reset(bank, R.key(6, env.device), n)
+        gs, lanes = chip_smoke.place_climber_lanes(state.game, n)
+        state = dataclasses.replace(state, game=gs)
+        frames, states, rewards = [ts.obs.cpu()], [], []
+        g = torch.Generator().manual_seed(0)
+        for _ in range(4):
+            a = torch.randint(0, 15, (n,), generator=g, dtype=torch.int32)
+            state, ts = env.step(bank, state, a.to(env.device))
+            frames.append(ts.obs.cpu())
+            states.append(tree_map(lambda x: x.cpu(), state))
+            rewards.append((ts.reward.cpu(), ts.terminated.cpu()))
+        out[d] = (states, rewards, frames, lanes)
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu[3] == gpu[3]
+    (reward0, done0), state0 = gpu[1][0], gpu[0][0]
+    assert done0[gpu[3]].all() and reward0[gpu[3]].tolist() == [0.0, 11.0]
+    assert state0.game.t[gpu[3]].tolist() == [0, 0]  # both lanes restarted
+    bad = []
+    for a, b in zip(cpu[0], gpu[0]):
+        tree_map(lambda x, y: None if torch.equal(x, y)
+                 else bad.append(x.shape), a, b)
+    assert not bad, bad
+    for (ra, da), (rb, db) in zip(cpu[1], gpu[1]):
+        assert torch.equal(ra, rb) and torch.equal(da, db)
+    for a, b in zip(cpu[2], gpu[2]):
+        assert torch.equal(a, b)
+
+
+def test_climber_entry_points_on_card(dev):
+    """On climber's states: B5 on the expanded field equals B1 on the raw
+    inputs, and stamps_from_pixel_bank (B4) its plain version, bitwise."""
+    env = pt.make("climber", device=dev)
+    bank = env.generate_bank(R.key(5, env.device), 32)
+    state, _ = env.reset(bank, R.key(6, env.device), 64)
+    for _ in range(3):
+        state, _ = env.step(bank, state,
+                            torch.full((64,), 7, dtype=torch.int32, device=dev))
+    gs = state.game
+    field = climber._scene_field(env.cfg, gs)
+    raw = sk.scene_raw(*climber._scene_inputs(env.cfg, gs))
+    assert torch.equal(_bits(sk.scene(*field)), _bits(raw))
+    b, v, s, r0, c0 = field[6][0]
+    got = compositor.stamps_from_pixel_bank(b, v, r0, c0, alives=s)
+    want = stk.stamps_reference(b, v, s, r0, c0, 64)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))

@@ -238,8 +238,9 @@ def test_make_rejects_what_is_not_ported():
 
 def test_port_imports_no_jax():
     """The port runs where jax is not installed, and uses nothing of the
-    JAX package: importing it and running a coinrun step and a bossfight
-    step loads neither jax nor flax nor the JAX package, and no module in
+    JAX package: importing it and running a step of every ported game,
+    `compositor.stamps_from_pixel_bank` and `scene_kernel.scene` loads
+    neither jax nor flax nor the JAX package, and no module in
     sys.modules comes from a file under procgen2_tpu/ (which a load by
     file path would bypass the import blocker with)."""
     code = textwrap.dedent("""
@@ -258,12 +259,20 @@ def test_port_imports_no_jax():
         sys.meta_path.insert(0, Blocker())
         import torch
         import procgen2_tpu_torch as pt
-        for game in ("coinrun", "bossfight"):
+        for game in ("coinrun", "bossfight", "climber"):
             env = pt.make(game, device="cpu")
             bank = env.generate_bank(pt.random.key(0), 2)
             state, ts = env.reset(bank, pt.random.key(1), 2)
             state, ts = env.step(bank, state, torch.full((2,), 9, dtype=torch.int32))
             assert ts.obs.shape == (2, 64, 64, 3)
+        from procgen2_tpu_torch.games import climber
+        from procgen2_tpu_torch.render import compositor, scene_kernel
+        field = climber._scene_field(env.cfg, state.game)
+        assert scene_kernel.scene(*field).shape == (2, 3, 64, 64)
+        bank_, var, scale, r0, c0 = field[6][0]
+        rgbp, a = compositor.stamps_from_pixel_bank(bank_, var, r0, c0,
+                                                    alives=scale)
+        assert rgbp.shape == (2, 3, 64, 64) and a.shape == (2, 1, 64, 64)
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
         jax_pkg = (pathlib.Path.cwd() / "procgen2_tpu").resolve()
         loaded = [name for name, m in list(sys.modules.items())

@@ -1,7 +1,13 @@
-"""The plain torch version of the scene kernel
-(procgen2_tpu_torch/render/scene_kernel.py::scene_raw_reference) against
-the JAX package: against the Pallas kernel run in interpret mode on random
-inputs, and against coinrun's CPU scene path on real levels. Both bitwise.
+"""The plain torch versions of the scene kernels
+(procgen2_tpu_torch/render/scene_kernel.py) against the JAX package, all
+bitwise:
+  * B1, `scene_raw_reference`: against the Pallas kernel
+    `scene_tpu_raw` run in interpret mode on random inputs, and against
+    coinrun's CPU scene path on real levels;
+  * B5, `scene_reference`: against the Pallas kernel `scene_tpu` run in
+    interpret mode and against the JAX package's `scene_reference` on
+    random expanded fields shaped like tests/test_scene_kernel.py's, and
+    its joint phase clamped into the tile bank.
 
 The CUDA kernel itself cannot run here; tests/test_torch_cuda.py and
 chip_smoke.py hold it against this plain version on the card."""
@@ -201,3 +207,94 @@ def test_coinrun_scene_matches_jax(jax_bank, seed):
                                convert.state(tcoin, st, "cpu"))
     assert got.dtype == torch.uint8 and got.shape == (8, 3, OBS, OBS)
     np.testing.assert_array_equal(want, got.numpy())
+
+
+def _random_field(seed, N=8, ne=5, fractional=True):
+    """Random inputs of `scene`, shaped like tests/test_scene_kernel.py::
+    _random_scene: 5 tile entries (two themed), a kind field with values
+    0..5, a background of whole values, two stamp groups with variants
+    out of range and stamps off every edge. `fractional`: slot scales
+    include 0.5 and 0.3 (else 0 or 1)."""
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: np.asarray(a, np.int32)  # noqa: E731
+    kinds, themes = tuple(range(1, ne + 1)), (-1, -1, 0, 1, -1)[:ne]
+    X = _bf16(np.concatenate([rng.integers(0, ne + 1, (N, 1, OBS, OBS)),
+                              rng.integers(0, 256, (N, 3, OBS, OBS))], 1))
+    p = i32(rng.integers(0, QP * QP, N))
+    theme = i32(rng.integers(0, 2, N))
+    tb = _bf16(np.round(rng.random((QP * QP, ne, 4, OBS, OBS)) * 4) / 4)
+    scales = np.float32([0, 1, 1, 0.5, 0.3] if fractional else [0, 1, 1])
+
+    def group(V, K, P):
+        bank = _bf16(np.round(rng.random((V, 4, P, P)) * 4) / 4)
+        return (bank, i32(rng.integers(-1, V + 1, (N, K))),
+                rng.choice(scales, (N, K)),
+                i32(rng.integers(-P, OBS + 2, (N, K))),
+                i32(rng.integers(-P, OBS + 2, (N, K))))
+
+    return X, p, theme, tb, kinds, themes, [group(6, 5, 8), group(4, 2, 12)]
+
+
+def _field_to(conv, args):
+    X, p, theme, tb, kinds, themes, groups = args
+    return (conv(X), conv(p), conv(theme), conv(tb), kinds, themes,
+            [tuple(conv(x) for x in g) for g in groups])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scene_reference_matches_pallas_interpret(seed):
+    args = _random_field(seed)
+    want = jsk.scene_tpu(*_field_to(_to_jax, args), OBS, interpret=True)
+    got = tsk.scene(*_field_to(_to_torch, args), OBS)
+    assert got.dtype == torch.bfloat16 and got.shape == (8, 3, OBS, OBS)
+    np.testing.assert_array_equal(
+        np.asarray(want, np.float32).view(np.int32),
+        got.float().numpy().view(np.int32))
+
+
+def test_scene_reference_matches_jax_reference():
+    """Against the JAX package's jnp mirror, whose stamp placement is a
+    one-hot einsum (equal to the kernel's for slot scales of 0 or 1)."""
+    args = _random_field(2, fractional=False)
+    want = jsk.scene_reference(*_field_to(_to_jax, args), OBS)
+    got = tsk.scene_reference(*_field_to(_to_torch, args), OBS)
+    np.testing.assert_array_equal(
+        np.asarray(want, np.float32).view(np.int32),
+        got.float().numpy().view(np.int32))
+
+
+def test_scene_clamps_the_joint_phase():
+    """p_joint past the tile bank reads its last phase, as the JAX
+    mirror's gather clamps; a negative p_joint reads phase 0."""
+    X, p, theme, tb, kinds, themes, groups = _random_field(3, N=4,
+                                                          fractional=False)
+    NPH = QP * QP
+    high = np.int32([NPH, NPH + 5, 1000, NPH - 1])
+    args = (X, high, theme, tb, kinds, themes, groups)
+    want = jsk.scene_reference(*_field_to(_to_jax, args), OBS)
+    got = tsk.scene(*_field_to(_to_torch, args), OBS)
+    np.testing.assert_array_equal(
+        np.asarray(want, np.float32).view(np.int32),
+        got.float().numpy().view(np.int32))
+    t = _field_to(_to_torch, (X, np.int32([-1, -7, 0, 0]), theme, tb, kinds,
+                              themes, groups))
+    zero = tsk.scene(*t[:1], torch.zeros(4, dtype=torch.int32), *t[2:], OBS)
+    assert torch.equal(tsk.scene(*t, OBS).view(torch.int16),
+                       zero.view(torch.int16))
+    # the clamp matters: phase 0 and the last phase render differently
+    assert not torch.equal(zero, got)
+
+
+def test_scene_cpu_tensors_take_the_plain_path():
+    t = _field_to(_to_torch, _random_field(4, N=2))
+    before = tsk.scene.launches
+    got = tsk.scene(*t, OBS)
+    assert torch.equal(got.view(torch.int16),
+                       tsk.scene_reference(*t, OBS).view(torch.int16))
+    assert tsk.scene.launches == before  # only kernel launches count
+
+
+def test_scene_other_devices_raise():
+    t = _field_to(lambda x: _to_torch(x).to("meta"), _random_field(5, N=1))
+    with pytest.raises(ValueError):
+        tsk.scene(*t, OBS)

@@ -1,11 +1,18 @@
-"""The plain torch version of the stamp-over-frame kernel
-(procgen2_tpu_torch/render/stamp_kernel.py::composite_reference) against
-the JAX package's Pallas kernel `stamp_kernel.composite_tpu` run in
-interpret mode, bitwise: bossfight's four stamp-group shapes and a random
-case with out-of-range variants, scale 0, fractional scales, stamps off
-every edge and overlapping stamps. Also: one call over several groups
-equals one call per group in order, and `compositor.composite_stamps`
-equals the JAX function on its kernel path.
+"""The plain torch versions of the stamp kernels
+(procgen2_tpu_torch/render/stamp_kernel.py) against the JAX package's
+Pallas kernels run in interpret mode, bitwise:
+  * B3, `composite_reference` against `stamp_kernel.composite_tpu`:
+    bossfight's four stamp-group shapes and a random case with
+    out-of-range variants, scale 0, fractional scales, stamps off every
+    edge and overlapping stamps. Also: one call over several groups equals
+    one call per group in order, and `compositor.composite_stamps` equals
+    the JAX function on its kernel path;
+  * B4, `stamps_reference` against `stamp_kernel.stamps_tpu`, at every
+    patch size of tests/test_stamp_kernel.py, with the same kinds of
+    random groups; and `compositor.stamps_from_pixel_bank` against the JAX
+    function on the CPU, which sums by matmul in another order: there the
+    support must be the same and the values within that test's
+    tolerance (atol 4.0, rtol 0.02 on rgb; atol 1/32 on alpha).
 
 The CUDA kernel itself cannot run here; tests/test_torch_cuda.py and
 chip_smoke.py hold it against this plain version on the card."""
@@ -161,3 +168,93 @@ def test_other_devices_raise():
     group = tuple(t.to("meta") for t in random_group(rng, *shapes()[0]))
     with pytest.raises(ValueError):
         tsk.composite(img, [group])
+
+
+def pallas_stamps(group):
+    bank, var, scale, r0, c0 = (_to_jax(t) for t in group)
+    return jsk.stamps_tpu(bank, var, scale, r0, c0, OBS, interpret=True)
+
+
+@pytest.mark.parametrize("P", [8, 12, 20, 28, 40])
+def test_stamps_reference_matches_pallas_interpret(P):
+    """B4's plain version against the Pallas stamp-sum kernel, bitwise.
+    Every P here has its aligned row window inside the frame
+    (jsk._win(P) <= 64), where the Pallas kernel is defined."""
+    assert jsk._win(P) <= OBS
+    rng = np.random.default_rng(20 + P)
+    group = random_group(rng, 4, P, 6)
+    want_rgb, want_a = pallas_stamps(group)
+    got_rgb, got_a = tsk.stamps_reference(*group, OBS)
+    assert got_rgb.dtype == torch.bfloat16 and got_rgb.shape == (N, 3, OBS, OBS)
+    assert got_a.shape == (N, 1, OBS, OBS)
+    np.testing.assert_array_equal(bits(want_rgb), bits(got_rgb))
+    np.testing.assert_array_equal(bits(want_a), bits(got_a))
+
+
+def test_stamps_reference_on_climber_group_matches_pallas():
+    """Climber's merged crystal/mob/agent group (V=37, P=8, K=35) with
+    many stamps on the frame at once."""
+    from procgen2_tpu_torch.games import climber as tclimb
+
+    rng = np.random.default_rng(9)
+    bank = tC._premultiply_bank(tclimb._merged_bank())
+    V, K = bank.shape[0], tclimb.MAX_POINTS + tclimb.MAX_MOBS + 1
+    group = (bank, torch.from_numpy(rng.integers(-1, V + 1, (N, K)).astype(np.int32)),
+             torch.from_numpy((rng.random((N, K)) < 0.7).astype(np.float32)),
+             torch.from_numpy(rng.integers(-8, 66, (N, K)).astype(np.int32)),
+             torch.from_numpy(rng.integers(-8, 66, (N, K)).astype(np.int32)))
+    want_rgb, want_a = pallas_stamps(group)
+    got_rgb, got_a = tsk.stamps_reference(*group, OBS)
+    np.testing.assert_array_equal(bits(want_rgb), bits(got_rgb))
+    np.testing.assert_array_equal(bits(want_a), bits(got_a))
+
+
+@pytest.mark.parametrize("P", [8, 12, 20])
+def test_stamps_from_pixel_bank_matches_jax(P):
+    """compositor.stamps_from_pixel_bank (premultiplied bank, alives and
+    alpha folded into the slot scale) against the JAX function on the CPU
+    (its matmul path): the same covered pixels, and values within
+    tests/test_stamp_kernel.py's tolerance, which allows for the matmul's
+    other summation order over overlapping stamps."""
+    rng = np.random.default_rng(30 + P)
+    V, K = 5, 7
+    pbank = rng.integers(0, 256, (V, 4, P, P)).astype(np.uint8)
+    pbank[:, 3] = rng.integers(64, 256, (V, P, P))  # alpha > 0 everywhere
+    var = rng.integers(-1, V + 1, (N, K)).astype(np.int32)
+    r0 = rng.integers(-P - 2, OBS + 3, (N, K)).astype(np.int32)
+    c0 = rng.integers(-P - 2, OBS + 3, (N, K)).astype(np.int32)
+    r0[:, 1], c0[:, 1] = r0[:, 0] + 2, c0[:, 0] + 2  # overlaps
+    alives = rng.random((N, K)) < 0.7
+    alpha = rng.choice(np.float32([1.0, 0.7]), (N, K))
+    want_rgb, want_a = jC.stamps_from_pixel_bank(
+        jnp.asarray(pbank), jnp.asarray(var), jnp.asarray(r0),
+        jnp.asarray(c0), alives=jnp.asarray(alives), alpha=jnp.asarray(alpha))
+    got_rgb, got_a = tC.stamps_from_pixel_bank(
+        tC._premultiply_bank(pbank), torch.from_numpy(var),
+        torch.from_numpy(r0), torch.from_numpy(c0),
+        alives=torch.from_numpy(alives), alpha=torch.from_numpy(alpha))
+    np.testing.assert_array_equal(np.asarray(want_a) != 0,
+                                  got_a.float().numpy() != 0)
+    assert (got_a.float() != 0).any()
+    np.testing.assert_allclose(np.float32(want_rgb), got_rgb.float().numpy(),
+                               atol=4.0, rtol=0.02)
+    np.testing.assert_allclose(np.float32(want_a), got_a.float().numpy(),
+                               atol=1 / 32, rtol=0.02)
+
+
+def test_stamps_cpu_tensors_take_the_plain_path():
+    rng = np.random.default_rng(11)
+    group = random_group(rng, 4, 12, 5)
+    before = tsk.stamps.launches
+    got = tsk.stamps(*group, OBS)
+    want = tsk.stamps_reference(*group, OBS)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+    assert tsk.stamps.launches == before  # only kernel launches count
+
+
+def test_stamps_other_devices_raise():
+    rng = np.random.default_rng(12)
+    group = tuple(t.to("meta") for t in random_group(rng, 4, 8, 3))
+    with pytest.raises(ValueError):
+        tsk.stamps(*group, OBS)
