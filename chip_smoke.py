@@ -14,15 +14,19 @@ Phases (any failure raises, so the exit code is non-zero and the final
      power limit; make("coinrun") (on the card by default);
   2. build: builds the scene kernels (B1, B5) and the stamp kernels (B3,
      B4) from their two sources (nvcc, sm_90a, one compiler process each,
-     started together) and prints their times and ptxas registers and
-     spills;
+     started together) and prints their times and, per kernel, ptxas's
+     registers, shared memory and spills;
   3. kernels vs plain on random inputs at 4096 envs, all bitwise equal:
      the raw scene kernel (B1) on coinrun's shapes; the stamp-over-frame
      kernel (B3) on bossfight's four stamp groups; the stamp-sum kernel
      (B4) on groups with P = 8, 12 and 20; the expanded-field scene kernel
      (B5) on a random scene of 5 tile entries (two themed) and two groups.
      The random groups have out-of-range variants, scale 0, fractional
-     scales, stamps off every edge and overlaps;
+     scales, stamps off every edge and overlaps. Then B3 and B1 on the
+     edge cases of their staged slot tables at 257 envs (edge_groups:
+     K = 300, 40 live slots stacked on one pixel between dead ones, P = 40
+     at every offset; B1 with themed and unthemed entries for every theme),
+     bitwise;
   4. coinrun main path: generate_bank(1024) -> reset(4096) -> lanes 0-2
      placed on the coin, a saw and lava -> 8 steps writing obs into a
      uint8 [8, 4096, 64, 64, 3] buffer; the launch count shows the path
@@ -86,6 +90,7 @@ from procgen2_tpu_torch.utils import (bank_gather, tree_map,  # noqa: E402
 
 NUM_LEVELS, NUM_ENVS, T = 1024, 4096, 8  # procgen2_tpu/tools/bench_cli.py:18
 CPU_ENVS = 8
+EDGE_ENVS = 257  # envs of the edge cases of phase 3
 # H100 SXM data sheet peaks (at 700 W): device memory, and f32 outside the
 # tensor cores. The sheet's 67 TFLOP/s counts a fused multiply-add as two
 # operations; the kernels are built with --fmad=false and issue each
@@ -333,6 +338,127 @@ def random_stamps(n, dev, seed=0):
                  for V, P, K in bossfight_group_shapes()]
 
 
+EDGE_CASES = ("k300", "stacked", "p40")
+
+
+def edge_groups(case, n, dev, seed=0, obs=64):
+    """Stamp groups at the edges of the staged slot tables of B1 and B3
+    (csrc/stamps.cuh), with live slots at fractional scales so that the
+    order of their blends shows:
+      * "k300": one group of K = 300 (P = 8): more slots than one staging
+        pass takes (256); slots 250-261 are live and stacked across the
+        pass boundary;
+      * "stacked": two groups (P = 8, K = 48; P = 12, K = 32) whose even
+        slots, 40 in all, are live and cover pixel (29, 35); the odd slots
+        between them are dead (scale 0, var -1, var V, or off the frame);
+      * "p40": one group of P = 40 with a slot at every row offset from -P-1
+        to obs+1 and every column offset, shifted per env, so that P = 40
+        stamps start and end at every column of a lane's 8-pixel run and
+        at every row and column of a warp's 16 x 16 region."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def fractions(shape):
+        return 0.25 + 0.75 * torch.rand(shape, generator=g, device=dev)
+
+    if case == "k300":
+        bank, var, scale, r0, c0 = random_group(g, n, dev, 6, 8, 300, obs)
+        stack = slice(250, 262)
+        var[:, stack] = ri(0, 6, (n, 12))
+        scale[:, stack] = fractions((n, 12))
+        r0[:, stack] = 20 + ri(-3, 4, (n, 12))
+        c0[:, stack] = 30 + ri(-3, 4, (n, 12))
+        return [(bank, var, scale, r0, c0)]
+    if case == "stacked":
+        groups = []
+        for V, P, K in ((5, 8, 48), (4, 12, 32)):
+            bank, var, scale, r0, c0 = random_group(g, n, dev, V, P, K, obs)
+            live = slice(0, K, 2)
+            var[:, live] = ri(0, V, (n, K // 2))
+            scale[:, live] = fractions((n, K // 2))
+            r0[:, live] = 29 - ri(0, P, (n, K // 2))
+            c0[:, live] = 35 - ri(0, P, (n, K // 2))
+            # dead slot kinds 0-3 in turn: scale 0, var -1, var V, a live
+            # slot placed below the frame
+            kind = ((torch.arange(K // 2, device=dev)[None]
+                     + torch.arange(n, device=dev)[:, None]) % 4)
+            scale[:, 1::2] = torch.where(kind == 0, 0.0, 1.0)
+            var[:, 1::2] = torch.where(kind == 1, -1, torch.where(
+                kind == 2, V, 0)).to(torch.int32)
+            r0[:, 1::2] = torch.where(kind == 3, obs, r0[:, 1::2]).to(torch.int32)
+            groups.append((bank, var, scale, r0, c0))
+        return groups
+    if case == "p40":
+        P, span = 40, obs + 40 + 3
+        bank, var, scale, r0, c0 = random_group(g, n, dev, 3, P, span, obs)
+        k = torch.arange(span, device=dev)[None]
+        e = torch.arange(n, device=dev)[:, None]
+        r0 = (-P - 1 + k).expand(n, span).to(torch.int32).contiguous()
+        c0 = (-P - 1 + (k * 37 + e * 13) % span).to(torch.int32)
+        scale = torch.where(scale == 0.0, fractions((n, span)), scale)
+        return [(bank, var, scale.contiguous(), r0, c0)]
+    raise ValueError(f"unknown edge case {case!r}")
+
+
+def edge_stamps(case, n, dev, seed=0):
+    """B3's inputs for an edge case: a bf16 frame [n, 3, 64, 64] of whole
+    values in [0, 255] and the case's groups (edge_groups)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1000)
+    img = torch.randint(0, 256, (n, 3, 64, 64), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.bfloat16)
+    return img, edge_groups(case, n, dev, seed)
+
+
+EDGE_THEMES = 6  # as coinrun's wall themes
+
+
+def edge_entries():
+    """Tile entries, themed and unthemed, for every theme: kinds 1 and 2
+    for each theme in turn, then unthemed kinds 1 (after the themed ones:
+    two blends in order on a kind-1 cell), 3, -5 (a negative int8 kind) and
+    0 (the kind of a cell outside the grid)."""
+    kinds, themes = [], []
+    for t in range(EDGE_THEMES):
+        kinds += [1, 2]
+        themes += [t, t]
+    return tuple(kinds + [1, 3, -5, 0]), tuple(themes + [-1, -1, -1, -1])
+
+
+def edge_scene(case, n, dev, seed=0):
+    """B1's inputs for an edge case: coinrun's shapes, the entries of
+    edge_entries on a grid of kinds 0, 1, 2, 3, -5 and 7 (7 matches no
+    entry), env themes in [-1, EDGE_THEMES] (both ends match no themed
+    entry), windows that leave the padded grid, backgrounds in range, and
+    the case's groups (edge_groups)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2000)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    kinds, themes = edge_entries()
+    ne, nb, gp, obs, qp, pad = len(kinds), 3, 96, 64, 4, 16
+    palette = torch.tensor([0, 1, 2, 3, -5, 7], dtype=torch.int8, device=dev)
+    gridp = palette[ri(0, len(palette), (n, gp, gp)).long()]
+    ty0, tx0 = ri(-pad - 8, 64 + 8, (n,)), ri(-pad - 8, 64 + 8, (n,))
+    jy, jx = ri(0, qp, (n,)), ri(0, qp, (n,))
+    bg_i, theme = ri(0, nb, (n,)), ri(-1, EDGE_THEMES + 1, (n,))
+    bg_bank = ri(0, 256, (nb, 3, gp, gp)).to(torch.bfloat16)
+    a = torch.rand((qp * qp, ne, 1, obs, obs), generator=g, device=dev)
+    tile_bank = torch.cat([torch.rand((qp * qp, ne, 3, obs, obs), generator=g,
+                                      device=dev) * 255 * a, a],
+                          dim=2).to(torch.bfloat16)
+    tr_tab = coinrun._scene_tensors(qp, str(dev))["tr_tab"]
+    return (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
+            kinds, themes, edge_groups(case, n, dev, seed), obs, qp, pad)
+
+
 SUM_GROUP_SHAPES = ((6, 8, 17), (5, 12, 9), (4, 20, 5))  # (V, P, K)
 
 
@@ -388,6 +514,27 @@ def vs_plain(what, kernel, plain, args, iters):
     ms = cuda_ms(lambda: kernel(*args), iters)
     plain_ms = cuda_ms(lambda: plain(*args), 3)
     return err, ms, plain_ms
+
+
+def edges_vs_plain(n, dev):
+    """B3 and B1 on each edge case (edge_stamps, edge_scene) at n envs,
+    bitwise equal to their plain versions. These launches are not the
+    main path's and are not counted there."""
+    for case in EDGE_CASES:
+        for what, kernel, plain, args in (
+                ("stamp kernel", stamp_kernel.composite,
+                 stamp_kernel.composite_reference, edge_stamps(case, n, dev)),
+                ("scene kernel", scene_kernel.scene_raw,
+                 scene_kernel.scene_raw_reference, edge_scene(case, n, dev))):
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            ndiff, err = bitwise_diff(got, want)
+            if ndiff:
+                raise AssertionError(f"{what} differs from its plain version "
+                                     f"on edge case {case} in {ndiff} values "
+                                     f"(max abs err {err})")
+    log(f"edge cases {', '.join(EDGE_CASES)} at N={n}: the stamp and scene "
+        f"kernels bitwise equal to their plain versions")
 
 
 def scene_vs_plain(args, iters):
@@ -666,7 +813,8 @@ def build_kernels():
         log(f"build: {rec['name']} {rec['seconds']:.1f} s "
             f"({'cached' if rec['cached'] else 'nvcc'})")
         for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"  ptxas: {line.strip()}")
 
 
@@ -934,6 +1082,7 @@ def main():
         log(f"stamp-sum kernel vs plain, random group V={V} P={P} K={K} "
             f"N={NUM_ENVS}: bitwise equal; kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {b:.4f} ms ({by})")
+    edges_vs_plain(EDGE_ENVS, dev)
     field_args = random_field(NUM_ENVS, dev)
     err5_r, ms, plain = field_vs_plain(field_args, 20)
     b, by = bound(*field_work(field_args))

@@ -1,16 +1,17 @@
 // Scene kernels for Hopper (sm_90a): tile layer + background +
 // painter-order stamps of the quantized-camera scene render, one env frame
-// per launch row. One nvcc build, two kernels:
+// per block. One nvcc build, two kernels:
 //
 // (B1) scene_raw_kernel replaces the Pallas TPU kernel
 // procgen2_tpu/render/scene_kernel.py `_scene_kernel_raw` (launched by
 // `_scene_raw`, entry `scene_tpu_raw`), with its stamp loop
-// `_blend_stamps_ref` as the device function `blend_stamps` (stamps.cuh,
-// shared with the stamp kernels).
+// `_blend_stamps_ref` as the staged slot list of stamps.cuh
+// (`stage_slots`, `blend_slots`, shared with B3).
 // (B5) scene_kernel replaces the Pallas TPU kernel `_scene_kernel` of the
 // same file (launched by `_scene`, entry `scene_tpu`): B1 without step 1,
 // reading the kind field and the background from a pre-expanded field
-// X [N, 4, OBS, OBS] (channel 0 the kind, 1-3 the background).
+// X [N, 4, OBS, OBS] (channel 0 the kind, 1-3 the background), with the
+// stamp loop `blend_stamps` (stamps.cuh).
 //
 // What they compute, per env e and output pixel (r, c):
 //   1. the kind field and background under the pixel. B1 reads them from
@@ -35,17 +36,46 @@
 //   versions (`scene_raw_reference`, `scene_reference`) and of the JAX
 //   package's bf16 ops.
 //
-// Design (both): one thread per output pixel, a block of 256 threads
-// covers 4 rows of one env, blockIdx.x is the env. Each pixel's blend
-// chain is independent, so no synchronisation and no shared memory. What
-// bounds them on the card: B1 reads ~40 bytes per pixel (grid, bg, the
-// matching tile entries, the stamps that cover it) and writes 6; B5 reads
-// the 8-byte field X (134.2 MB at 4096 envs) plus the matching tile
-// entries and stamps and writes 6 (100.7 MB); both repeat the per-slot
-// scalar loads in every thread of the block (served from L1 as
-// broadcasts). The TPU kernels' selector matmuls, lane rolls, 128-lane f32
-// bank padding and 16-env blocks answer TPU constraints and are not
-// carried over.
+// Design of B1 (redesigned for Hopper; before, it was B5's design below):
+// the bound is bytes, the 100.7 MB bf16 output at 4096 envs plus the grid
+// cells, background texels and tile texels under the env windows (a few
+// MB, L2-resident). The one-thread-per-pixel design spent its time issuing
+// work instead: every pixel compared its kind with every tile entry (18
+// for coinrun), decoded every slot of every group (four dependent loads,
+// clamps and a bounds test each), re-read the env's scalars and two
+// phase-table entries, and stored 2 bytes at a time; and a warp spanned 8
+// full rows, so a small stamp kept few of its lanes busy. Now one block of
+// 256 threads owns an env, each warp a 16 x 16 pixel region and each lane
+// an 8-pixel run of one row (stamps.cuh), and
+//   * per env, in shared memory: the six scalars; the padded-grid row of
+//     every output row and column of every output column (the two TR rows,
+//     offset); for each int8 kind value, the mask of the tile entries that
+//     match it and the env's theme. A pixel looks its mask up once and
+//     blends its 0-2 entries in bit order = entry order;
+//   * a lane reads a grid cell and its three background texels only where
+//     its column's cell differs from the previous column's (the phase
+//     table maps ~4.8 adjacent columns to one cell): these scalar reads
+//     were the largest cost left;
+//   * an entry's 8 texels of one channel under a run are one 16-byte load;
+//   * the slot table is staged once per env in shared memory and culled per
+//     warp region and per run (stamps.cuh);
+//   * the output is stored as 16-byte vectors.
+// The TPU kernel's selector matmuls (0/1 matrices contracted against the
+// grid and the background on the MXU) are the gather above: no tensor
+// cores, the work is a chain of separately rounded bf16 blends per pixel,
+// not a product. What remains beyond the bytes: the per-env preamble (two
+// barriers, the scalar and phase-table loads) and the staging barriers,
+// hidden by 4 resident blocks per SM (64 registers), and the blends.
+//
+// Design of B5 (unchanged): one thread per output pixel, a block of 256
+// threads covers 4 rows of one env, blockIdx.x is the env; each pixel's
+// blend chain is independent, so no synchronisation and no shared memory.
+// What bounds it: it reads the 8-byte field X (134.2 MB at 4096 envs) plus
+// the matching tile entries and stamps and writes 6 bytes per pixel
+// (100.7 MB); it repeats the per-slot scalar loads in every thread of the
+// block (served from L1 as broadcasts). The TPU kernels' selector
+// matmuls, lane rolls, 128-lane f32 bank padding and 16-env blocks answer
+// TPU constraints and are not carried over.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,14 +84,19 @@
 
 namespace {
 
+using stamps::SlotList;
 using stamps::StampGroups;
 using stamps::blend;
 using stamps::blend_stamps;
 using stamps::clampi;
+using stamps::kStageSlots;
+using stamps::kTileCols;
 using stamps::ld;
+using stamps::Run;
 
 constexpr int kMaxEntries = 32;
-constexpr int kThreads = 256;
+constexpr int kMaxObs = 256;   // B1: rows and columns staged per env
+constexpr int kThreads = 256;  // B5: one thread per pixel
 
 // The tile entries' kinds and themes travel as kernel parameters.
 struct TileEntries {
@@ -88,7 +123,14 @@ __device__ __forceinline__ void blend_tiles(float f[3], Kind G, int th,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// B1: one block per env; each warp a 16 x 16 pixel region, each lane an
+// 8-pixel run of one row (stamps.cuh), in passes when the frame has more
+// regions than the block has warps. Staged per env in shared memory: the
+// six per-env scalars, the padded-grid row and column of every output row
+// and column (ty0 + pad + TR[jy][r], tx0 + pad + TR[jx][c]), and for each
+// int8 kind value the mask of the tile entries that match it and the
+// env's theme (bit i = entry i, so entry order is bit order).
+__global__ void __launch_bounds__(kStageSlots, 4)
 scene_raw_kernel(const int8_t* __restrict__ grid,
                  const int32_t* __restrict__ ty0,
                  const int32_t* __restrict__ tx0,
@@ -103,42 +145,116 @@ scene_raw_kernel(const int8_t* __restrict__ grid,
                  const StampGroups groups,
                  __nv_bfloat16* __restrict__ out,
                  int GP, int NB, int QP, int obs, int pad) {
+  static_assert(kStageSlots == 256, "one kind mask per thread");
+  __shared__ SlotList slots;
+  __shared__ int env_y[kMaxObs];
+  __shared__ int env_x[kMaxObs];
+  __shared__ uint32_t kind_mask[256];
+  __shared__ int env[6];  // ty0, tx0, jy, jx, bg_i, theme
   const int e = blockIdx.x;
-  const int p = blockIdx.y * kThreads + threadIdx.x;
+  const int t = threadIdx.x;
+  if (t < 6) {
+    const int32_t* src = t == 0 ? ty0 : t == 1 ? tx0 : t == 2 ? jy
+                       : t == 3 ? jx : t == 4 ? bg_i : theme;
+    env[t] = src[e];
+  }
+  __syncthreads();
+  const int py = clampi(env[2], 0, QP - 1);
+  const int px = clampi(env[3], 0, QP - 1);
+  const int b = env[4];
+  const int th = env[5];
+  for (int i = t; i < obs; i += kStageSlots) {
+    env_y[i] = env[0] + pad + tr_tab[py * obs + i];
+    env_x[i] = env[1] + pad + tr_tab[px * obs + i];
+  }
+  {
+    const int kind = (int)(int8_t)t;
+    uint32_t m = 0;
+#pragma unroll 8
+    for (int i = 0; i < entries.n; ++i) {
+      const int want = entries.theme[i];
+      if (entries.kind[i] == kind && (want < 0 || want == th)) m |= 1u << i;
+    }
+    kind_mask[t] = m;
+  }
+  __syncthreads();
+
+  const bool bg_ok = b >= 0 && b < NB;
   const int npix = obs * obs;
-  if (p >= npix) return;
-  const int r = p / obs;
-  const int c = p - r * obs;
-
-  // (1) kind field and background under the pixel
-  const int py = clampi(jy[e], 0, QP - 1);
-  const int px = clampi(jx[e], 0, QP - 1);
-  const int y = ty0[e] + pad + tr_tab[py * obs + r];
-  const int x = tx0[e] + pad + tr_tab[px * obs + c];
-  const bool inb = y >= 0 && y < GP && x >= 0 && x < GP;
-  const int G = inb ? (int)grid[((size_t)e * GP + y) * GP + x] : 0;
-  const int b = bg_i[e];
-  const bool bg_ok = inb && b >= 0 && b < NB;
-  float f[3];
+  const __nv_bfloat16* tb =
+      tile_bank + (size_t)(py * QP + px) * entries.n * 4 * npix;
+  int n = 0;
+  for (int pass = 0; pass < stamps::runs_passes(obs); ++pass) {
+    const Run u = stamps::run_of(pass, obs);
+    float f[kTileCols][3];
+    if (u.active) {
+      // (1) kind field and background under each pixel of the run. The
+      // phase table maps several adjacent columns to one cell, so a cell
+      // is read only where the column's cell differs from the previous
+      // column's; the others take the same values.
+      const int y = env_y[u.R];
+      const bool yin = y >= 0 && y < GP;
+      const int8_t* grow = grid + ((size_t)e * GP + y) * GP;
+      const __nv_bfloat16* brow = bg_bank + ((size_t)b * 3 * GP + y) * GP;
+      const size_t bplane = (size_t)GP * GP;
+      // the run's kinds, a byte each: two registers where eight masks
+      // would spill at 64 (the tile loop looks the masks up again)
+      uint32_t kinds[2] = {0, 0};
+      uint32_t any = 0;
+      uint32_t cell_kind = 0;
+      uint32_t cell_mask = 0;
+      float cell_bg[3] = {0.0f, 0.0f, 0.0f};
+      int x_prev = 0;
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    f[ch] = bg_ok ? ld(bg_bank + (((size_t)b * 3 + ch) * GP + y) * GP + x)
-                  : 0.0f;
-  }
-
-  // (2) tile entries in order
-  blend_tiles(f, G, theme[e],
-              tile_bank + (size_t)(py * QP + px) * entries.n * 4 * npix + p,
-              entries, npix);
-
-  // (3) stamp groups in painter order
-  for (int gi = 0; gi < groups.n; ++gi) {
-    blend_stamps(f, groups.g[gi], e, r, c, obs);
-  }
-
-  __nv_bfloat16* o = out + (size_t)e * 3 * npix + p;
+      for (int k = 0; k < kTileCols; ++k) {
+        const int x = env_x[u.C + k];
+        if (k == 0 || x != x_prev) {
+          const bool inb = yin && x >= 0 && x < GP;
+          cell_kind = inb ? (uint32_t)(uint8_t)grow[x] : 0u;
+          cell_mask = kind_mask[cell_kind];
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) o[ch * npix] = __float2bfloat16_rn(f[ch]);
+          for (int ch = 0; ch < 3; ++ch) {
+            cell_bg[ch] = inb && bg_ok ? ld(brow + ch * bplane + x) : 0.0f;
+          }
+        }
+        x_prev = x;
+        kinds[k / 4] |= cell_kind << (8 * (k % 4));
+        any |= cell_mask;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) f[k][ch] = cell_bg[ch];
+      }
+      // (2) the matching tile entries in order: an entry's 8 texels of one
+      // channel under the run are one 16-byte load
+      while (any) {
+        const int i = __ffs(any) - 1;
+        any &= any - 1;
+        const uint4* tp = reinterpret_cast<const uint4*>(
+            tb + (size_t)i * 4 * npix + u.R * obs + u.C);
+        uint4 v[4];
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) v[ch] = __ldg(tp + ch * (npix / 8));
+#pragma unroll
+        for (int k = 0; k < kTileCols; ++k) {
+          const uint32_t kind = (kinds[k / 4] >> (8 * (k % 4))) & 255u;
+          if (!((kind_mask[kind] >> i) & 1u)) continue;
+          const float rgb[3] = {stamps::lane_of(v[0], k),
+                                stamps::lane_of(v[1], k),
+                                stamps::lane_of(v[2], k)};
+          blend(f[k], rgb, stamps::lane_of(v[3], k));
+        }
+      }
+    }
+    // (3) stamp groups in painter order
+    stamps::stamp_pass(f, u, groups, e, obs, pass, slots, n);
+    if (u.active) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        *reinterpret_cast<uint4*>(
+            out + (((size_t)e * 3 + ch) * obs + u.R) * obs + u.C) =
+            stamps::pack8(f, ch);
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -192,7 +308,8 @@ bool make_entries(TileEntries* out, int NE, const int* entry_kind,
 }  // namespace
 
 // Plain C entry point of B1 (bound with ctypes). Tensor pointers are device
-// pointers of contiguous tensors checked by the Python wrapper;
+// pointers of contiguous tensors checked by the Python wrapper (obs a
+// multiple of 8 up to kMaxObs, tile_bank and out on 16-byte boundaries);
 // entry_kind/entry_theme (NE entries) and the per-group arrays
 // (n_groups entries) are host arrays. Returns 0, a cudaError_t, or -1
 // for a shape the kernel does not take.
@@ -211,12 +328,13 @@ extern "C" int scene_raw_launch(
   if (!stamps::make_groups(&groups, n_groups, banks, vars, scales, r0s, c0s,
                            Vs, Ps, Ks) ||
       !make_entries(&entries, NE, entry_kind, entry_theme) || N < 0 ||
-      obs <= 0 || QP <= 0) {
+      obs <= 0 || obs > kMaxObs || obs % kTileCols != 0 || QP <= 0 ||
+      reinterpret_cast<uintptr_t>(tile_bank) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return -1;
   }
   if (N == 0) return 0;
-  const dim3 grid_dim(N, (obs * obs + kThreads - 1) / kThreads);
-  scene_raw_kernel<<<grid_dim, kThreads, 0,
+  scene_raw_kernel<<<N, kStageSlots, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(grid), static_cast<const int32_t*>(ty0),
       static_cast<const int32_t*>(tx0), static_cast<const int32_t*>(jy),

@@ -1,18 +1,23 @@
 // Stamp placement shared by the port's Hopper kernels (scene_kernel.cu,
-// stamp_kernel.cu): the bf16 rounding helpers, the stamp-group
-// descriptors, `blend_stamps`, the device function that replaces the
-// Pallas painter-order stamp loop (`_blend_stamps_ref` in
-// procgen2_tpu/render/scene_kernel.py, `_kernel_blend`'s body in
-// procgen2_tpu/render/stamp_kernel.py), and `sum_stamps`, the body of the
-// Pallas stamp-sum kernel (`_kernel` in procgen2_tpu/render/stamp_kernel.py).
+// stamp_kernel.cu): the bf16 rounding helpers and the stamp-group
+// descriptors; B2, the Pallas painter-order stamp loop
+// (`_blend_stamps_ref` in procgen2_tpu/render/scene_kernel.py,
+// `_kernel_blend`'s body in procgen2_tpu/render/stamp_kernel.py), in two
+// forms: `blend_stamps`, one pixel at a time (B5), and the staged slot
+// list below (`stage_slots`, `blend_slots`, `stamp_pass`: B1 and B3); and
+// `sum_stamps`, the body of the Pallas stamp-sum kernel (`_kernel` in
+// procgen2_tpu/render/stamp_kernel.py, B4).
 //
 // Every multiply, subtract and add is computed in f32 and rounded to bf16
 // (RNE) on its own, with __fmul_rn/__fsub_rn/__fadd_rn so that nothing is
 // contracted into an FMA: that is the rounding of the plain torch versions
 // and of the JAX package's bf16 ops. Build with --fmad=false as well.
+// Both forms of B2 run the same per-pixel chain in the same order; they
+// differ only in how the slots reaching a pixel are found.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace stamps {
@@ -109,6 +114,219 @@ __device__ __forceinline__ void sum_stamps(float f[4], const StampGroup& g,
                      f[ch] = bf(__fadd_rn(f[ch], contrib));
                    }
                  });
+}
+
+// ---------------------------------------------------------------------------
+// Staged slot tables (B1 and B3 since their redesign; B4 and B5 keep the
+// per-pixel loop above).
+//
+// `for_each_stamp` decodes every slot of every group in every thread, for
+// every pixel: four dependent scalar loads, two clamps and a bounds test
+// per slot and pixel, though most slots are dead or far from the pixel.
+// Instead, a block of kStageSlots threads owns one env frame. It decodes
+// the env's slot table once per staging pass, one slot per thread with
+// coalesced loads: the skip test above, the clip of r0/c0 to [-P, obs],
+// and a cull of slots that lie wholly off the frame (they cover no pixel).
+// The live slots are compacted in painter order (groups in order, slots in
+// order: a warp ballot and a prefix sum over the warps' counts) into a
+// shared-memory list. A table of more than kStageSlots slots is staged in
+// passes, in order; each thread keeps its pixels in registers across the
+// passes, so every pixel's chain keeps its order.
+//
+// Each warp owns a region of kRegion x kRegion pixels and each of its
+// lanes a run of 8 adjacent pixels of one row (one 16-byte vector per
+// channel). A stamp then covers most lanes of the warps it touches, so
+// the lanes blend together instead of one lane blending while the others
+// wait (laid along 4 full rows, a warp's 32 runs would have a P = 8
+// stamp on at most 8 of them; in a 16 x 16 region, on up to 16). A slot
+// is tested once against the warp's region (the same answer in every
+// lane: no divergence) and once against the lane's run; only a slot that
+// covers the run blends, over the pixels it covers. The per-pixel
+// arithmetic is `blend`'s: every op rounded on its own.
+// ---------------------------------------------------------------------------
+
+constexpr int kStageSlots = 256;  // threads of a staging block = list size
+constexpr int kTileCols = 8;      // a lane's run of pixels in one row
+constexpr int kRegion = 16;       // a warp's region: 16 rows x 2 runs
+static_assert(kRegion * kRegion == 32 * kTileCols, "one run per lane");
+
+// The live slots of one staging pass, in painter order.
+struct SlotList {
+  int4 geo[kStageSlots];  // r0, c0 (clipped), P, scale (f32 bits)
+  const __nv_bfloat16* tex[kStageSlots];  // bank[var], channel 0, texel 0
+  int warp_live[kStageSlots / 32];
+};
+
+// Where a lane's run lies: pass `pass` of a block of kStageSlots threads
+// over a frame of obs x obs pixels. R, C: the run's row and first column
+// (the warp's region starts at R and C rounded down to a multiple of
+// kRegion); active: the run lies in the frame.
+struct Run {
+  int R, C;
+  bool active;
+};
+
+// Passes of the block's warps over the frame's regions.
+__device__ __forceinline__ int runs_passes(int obs) {
+  const int nreg = (obs + kRegion - 1) / kRegion;
+  constexpr int warps = kStageSlots / 32;
+  return (nreg * nreg + warps - 1) / warps;
+}
+
+__device__ __forceinline__ Run run_of(int pass, int obs) {
+  const int nreg = (obs + kRegion - 1) / kRegion;
+  const int lane = threadIdx.x & 31;
+  const int g = pass * (kStageSlots / 32) + (threadIdx.x >> 5);
+  Run u;
+  u.R = g / nreg * kRegion + lane / 2;
+  u.C = g % nreg * kRegion + lane % 2 * kTileCols;
+  u.active = g < nreg * nreg && u.R < obs && u.C < obs;
+  return u;
+}
+
+// Number of slots over all groups.
+__device__ __forceinline__ int slot_count(const StampGroups& gs) {
+  int n = 0;
+#pragma unroll
+  for (int gi = 0; gi < kMaxGroups; ++gi) {
+    if (gi < gs.n) n += gs.g[gi].K;
+  }
+  return n;
+}
+
+// Decode and compact slots [j0, j0 + kStageSlots) of env e (the groups'
+// slots in painter order) into L; returns how many are live. Each thread
+// decodes one slot: the skip test, the clip, the cull of a slot wholly
+// off the frame; the live ones are compacted in order by a warp ballot and
+// a prefix sum over the warps' counts. Every thread of the block calls it
+// (it holds two __syncthreads); the list is complete on return. A thread
+// reaches the first barrier only after its blends over the previous
+// list, so no list is overwritten while it is read; warp_live is read only
+// between the two barriers.
+__device__ __forceinline__ int stage_slots(const StampGroups& gs, int e,
+                                           int j0, int obs, SlotList& L) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  bool live = false;
+  int4 geo = make_int4(0, 0, 0, 0);
+  const __nv_bfloat16* tex = nullptr;
+  int k = j0 + threadIdx.x;
+#pragma unroll
+  for (int gi = 0; gi < kMaxGroups; ++gi) {
+    if (gi < gs.n) {
+      const StampGroup& g = gs.g[gi];
+      if (k >= 0 && k < g.K) {
+        const size_t i = (size_t)e * g.K + k;
+        const float s = g.scale[i];
+        const int v = g.var[i];
+        const int r0 = clampi(g.r0[i], -g.P, obs);
+        const int c0 = clampi(g.c0[i], -g.P, obs);
+        live = s != 0.0f && v >= 0 && v < g.V && r0 > -g.P && r0 < obs &&
+               c0 > -g.P && c0 < obs;
+        geo = make_int4(r0, c0, g.P, __float_as_int(s));
+        tex = g.bank + (size_t)v * 4 * g.P * g.P;
+      }
+      k -= g.K;
+    }
+  }
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) L.warp_live[warp] = __popc(ballot);
+  __syncthreads();
+  int base = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kStageSlots / 32; ++w) {
+    const int c = L.warp_live[w];
+    total += c;
+    base += w < warp ? c : 0;
+  }
+  if (live) {
+    const int pos = base + __popc(ballot & ((1u << lane) - 1u));
+    L.geo[pos] = geo;
+    L.tex[pos] = tex;
+  }
+  __syncthreads();
+  return total;
+}
+
+// The n listed slots, in order, over the lane's run u: a slot that misses
+// the warp's region, or the run, is skipped with one test each; under a
+// slot, contrib = bf16(texel * scale) and frame = frame * (1 - a) + rgb,
+// as `blend_stamps`.
+__device__ __forceinline__ void blend_slots(float (&f)[kTileCols][3],
+                                            const Run& u, const SlotList& L,
+                                            int n) {
+  const int R0 = u.R & -kRegion;  // the warp's region
+  const int C0 = u.C & -kRegion;
+  for (int j = 0; j < n; ++j) {
+    const int4 geo = L.geo[j];
+    const int sr = geo.x, sc = geo.y, P = geo.z;
+    if (sr >= R0 + kRegion || sr + P <= R0 || sc >= C0 + kRegion ||
+        sc + P <= C0) {
+      continue;  // the whole warp skips it
+    }
+    const int dr = u.R - sr;
+    if (!u.active || dr < 0 || dr >= P || sc >= u.C + kTileCols ||
+        sc + P <= u.C) {
+      continue;
+    }
+    const __nv_bfloat16* t = L.tex[j] + dr * P;
+    const float s = __int_as_float(geo.w);
+    const int pp = P * P;
+#pragma unroll
+    for (int k = 0; k < kTileCols; ++k) {
+      const int dc = u.C + k - sc;
+      if (dc < 0 || dc >= P) continue;
+      float rgb[3];
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        rgb[ch] = bf(__fmul_rn(ld(t + dc + ch * pp), s));
+      }
+      blend(f[k], rgb, bf(__fmul_rn(ld(t + dc + 3 * pp), s)));
+    }
+  }
+}
+
+// The stamp groups of env e over the lane's run u, in pass `pass` of the
+// block over the frame (run_of). A table of at most kStageSlots slots is
+// staged in pass 0 and its list, n long, serves the later passes; a
+// larger one is staged anew in every pass, kStageSlots slots at a time,
+// each part blended before the next is staged. Every thread of the block
+// calls it.
+__device__ __forceinline__ void stamp_pass(float (&f)[kTileCols][3],
+                                           const Run& u,
+                                           const StampGroups& gs, int e,
+                                           int obs, int pass, SlotList& L,
+                                           int& n) {
+  const int nslots = slot_count(gs);
+  if (nslots <= kStageSlots) {
+    if (pass == 0) n = nslots > 0 ? stage_slots(gs, e, 0, obs, L) : 0;
+    blend_slots(f, u, L, n);
+    return;
+  }
+  for (int j0 = 0; j0 < nslots; j0 += kStageSlots) {
+    n = stage_slots(gs, e, j0, obs, L);
+    blend_slots(f, u, L, n);
+  }
+}
+
+// bf16 lane k of 8 packed in a uint4, as a float (exact).
+__device__ __forceinline__ float lane_of(const uint4& v, int k) {
+  const uint32_t w = k < 2 ? v.x : k < 4 ? v.y : k < 6 ? v.z : v.w;
+  return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+// 8 floats that are bf16 values (every frame value is: a bf16 load, 0 or
+// the result of `bf`) packed into a uint4 by keeping their high halves,
+// which is exact.
+__device__ __forceinline__ uint4 pack8(const float (&f)[kTileCols][3],
+                                       int ch) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[i] = __byte_perm(__float_as_uint(f[2 * i][ch]),
+                       __float_as_uint(f[2 * i + 1][ch]), 0x7632);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // Host side: fill a StampGroups from the per-group arrays of a plain C

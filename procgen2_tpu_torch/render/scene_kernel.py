@@ -38,7 +38,7 @@ import functools
 import torch
 
 from .stamp_kernel import (_I, _IP, _P, _PP, _ints, blend_groups_reference,
-                           check, check_groups, group_args)
+                           check, check_groups, check_tiles, group_args)
 
 _BF16 = torch.bfloat16
 
@@ -115,6 +115,7 @@ def scene_reference(X, p_joint, theme, tile_bank, entry_kind, entry_theme,
 # ---------------------------------------------------------------------------
 
 _MAX_ENTRIES = 32  # kMaxEntries in csrc/scene_kernel.cu
+MAX_OBS = 256  # kMaxObs in csrc/scene_kernel.cu (B1 stages rows and columns)
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,6 +200,9 @@ def scene_raw(gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab,
     check(bg_bank, _BF16, (bg_bank.shape[0], 3, GP, GP), dev, "bg_bank")
     check(tr_tab, i32, (qp, 1, obs), dev, "tr_tab")
     check(tile_bank, _BF16, (qp * qp, ne, 4, obs, obs), dev, "tile_bank")
+    if obs > MAX_OBS:
+        raise ValueError(f"scene_raw takes obs up to {MAX_OBS}, got {obs}")
+    check_tiles(obs, ("tile_bank", tile_bank))
     kinds, themes = _check_entries(entry_kind, entry_theme)
     check_groups(groups, N, dev)
     out = torch.empty((N, 3, obs, obs), dtype=_BF16, device=dev)

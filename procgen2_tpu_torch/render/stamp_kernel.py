@@ -30,6 +30,7 @@ import torch
 
 _BF16 = torch.bfloat16
 MAX_GROUPS = 4  # stamps::kMaxGroups in csrc/stamps.cuh
+TILE_COLS = 8  # stamps::kTileCols: B1 and B3 move frame rows 8 bf16 at a time
 
 
 def blend_groups_reference(frame, groups):
@@ -193,6 +194,18 @@ def check(t, dtype, shape, device, name):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_tiles(obs, *tensors):
+    """Raise ValueError unless B1's and B3's 16-byte row accesses fit: obs
+    a multiple of TILE_COLS and every tensor in `tensors` (name, tensor)
+    starting on a 16-byte boundary."""
+    if obs % TILE_COLS:
+        raise ValueError(f"the kernels take obs a multiple of {TILE_COLS}, "
+                         f"got {obs}")
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def composite(img, groups):
     """Blend the stamp groups over `img` (arguments and result as
     `composite_reference`). CUDA tensors launch the kernel, once for all
@@ -205,6 +218,7 @@ def composite(img, groups):
     dev = img.device
     N, _, obs, _ = img.shape
     check(img, _BF16, (N, 3, obs, obs), dev, "img")
+    check_tiles(obs, ("img", img))
     if not groups:
         raise ValueError("composite needs at least one stamp group")
     check_groups(groups, N, dev)

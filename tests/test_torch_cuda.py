@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: the scene kernels (B1, B5)
 and the stamp kernels (B3, B4) against their plain torch versions
-(bitwise), the kernel wrappers' checks, threefry words on the card, and
+(bitwise, B1 and B3 also on the edge cases of their staged slot tables),
+the kernel wrappers' checks, threefry words on the card, and
 coinrun, bossfight and climber on the card against the same games on the
 CPU.
 
@@ -126,6 +127,119 @@ def test_stamp_kernel_rejects_bad_inputs(dev):
         stk.composite(img, groups * 2)
     with pytest.raises(ValueError):
         stk.composite(img, [])
+
+
+@pytest.mark.parametrize("n", [1, 257, 4097])
+@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+def test_stamp_kernel_edge_slots(dev, case, n):
+    """B3 on the edge cases of its staged slot tables (chip_smoke.
+    edge_groups: K = 300 in one group, over more than one staging pass;
+    40 live slots stacked on one pixel with dead slots between them; P = 40
+    at every offset across the lanes' 8-pixel runs and the warps' 16 x 16
+    regions): one launch, bitwise equal to the plain version."""
+    img, groups = chip_smoke.edge_stamps(case, n, dev, seed=n)
+    before = stk.composite.launches
+    got = stk.composite(img, groups)
+    torch.cuda.synchronize()
+    assert stk.composite.launches == before + 1
+    assert torch.equal(_bits(got), _bits(stk.composite_reference(img, groups)))
+
+
+@pytest.mark.parametrize("n", [1, 257, 4097])
+@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+def test_scene_kernel_edge_slots(dev, case, n):
+    """B1 on the same edge cases, with themed and unthemed tile entries
+    for every theme (chip_smoke.edge_scene): bitwise equal to the plain
+    version."""
+    args = chip_smoke.edge_scene(case, n, dev, seed=n)
+    before = sk.scene_raw.launches
+    got = sk.scene_raw(*args)
+    torch.cuda.synchronize()
+    assert sk.scene_raw.launches == before + 1
+    assert torch.equal(_bits(got), _bits(sk.scene_raw_reference(*args)))
+
+
+def _scene_at(obs, n, dev, seed):
+    """scene_raw inputs at frame size obs (coinrun's other shapes): a
+    nondecreasing phase table like the games', 5 tile entries (two
+    themed), and a stamp group of K = 300 (more than one staging pass)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    gp, qp, pad, ne = 96, 4, 16, 5
+    gridp = ri(0, ne + 1, (n, gp, gp)).to(torch.int8)
+    steps = torch.rand((qp, 1, obs), generator=g, device=dev) < 0.2
+    tr_tab = steps.int().cumsum(-1).to(torch.int32).contiguous()
+    a = torch.rand((qp * qp, ne, 1, obs, obs), generator=g, device=dev)
+    tile_bank = torch.cat([torch.rand((qp * qp, ne, 3, obs, obs),
+                                      generator=g, device=dev) * 255 * a, a],
+                          dim=2).to(torch.bfloat16)
+    groups = [chip_smoke.random_group(g, n, dev, 6, 8, 300, obs)]
+    return (gridp, ri(-pad, 70, (n,)), ri(-pad, 70, (n,)), ri(0, qp, (n,)),
+            ri(0, qp, (n,)), ri(0, 3, (n,)), ri(0, 2, (n,)),
+            ri(0, 256, (3, 3, gp, gp)).to(torch.bfloat16), tr_tab, tile_bank,
+            (1, 2, 3, 4, 5), (-1, -1, 0, 1, -1), groups, obs, qp, pad)
+
+
+@pytest.mark.parametrize("obs", [8, 24, 72, 136])
+def test_tiled_kernels_at_other_frame_sizes(dev, obs):
+    """B1 and B3 at frame sizes other than the games' 64: warp regions
+    cut by the frame's edge (obs not a multiple of 16), more regions than
+    one pass of the block's warps, and a 300-slot table staged anew in
+    every pass; bitwise equal to the plain versions."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(obs)
+    img = torch.randint(0, 256, (33, 3, obs, obs), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.bfloat16)
+    groups = [chip_smoke.random_group(g, 33, dev, 6, 8, 300, obs),
+              chip_smoke.random_group(g, 33, dev, 3, 40, 7, obs)]
+    assert torch.equal(_bits(stk.composite(img, groups)),
+                       _bits(stk.composite_reference(img, groups)))
+    args = _scene_at(obs, 33, dev, obs + 1)
+    assert torch.equal(_bits(sk.scene_raw(*args)),
+                       _bits(sk.scene_raw_reference(*args)))
+
+
+def _misaligned(t):
+    """A contiguous copy of t that starts 2 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_tiled_kernels_reject_shapes_they_do_not_take(dev):
+    """B1 and B3 read and write frame rows 8 bf16 at a time: an obs that is
+    not a multiple of 8, a frame or tile bank off a 16-byte boundary, and
+    (B1) an obs above scene_kernel.MAX_OBS raise ValueError; nothing is
+    sent to the plain version."""
+    img, groups = chip_smoke.random_stamps(8, dev, 5)
+    before = stk.composite.launches
+    with pytest.raises(ValueError):
+        stk.composite(_misaligned(img), groups)
+    with pytest.raises(ValueError):
+        stk.composite(img[..., :60, :60].contiguous(), groups)
+    assert stk.composite.launches == before
+    args = list(chip_smoke.random_scene(8, dev, 6))
+    before = sk.scene_raw.launches
+    bad = list(args)
+    bad[9] = _misaligned(args[9])
+    with pytest.raises(ValueError):
+        sk.scene_raw(*bad)
+    for obs in (60, sk.MAX_OBS + 8):
+        bad = list(args)
+        bad[8] = torch.zeros((args[14], 1, obs), dtype=torch.int32,
+                             device=dev)
+        bad[9] = torch.zeros((args[14] ** 2, len(args[10]), 4, obs, obs),
+                             dtype=torch.bfloat16, device=dev)
+        bad[13] = obs
+        with pytest.raises(ValueError):
+            sk.scene_raw(*bad)
+    assert sk.scene_raw.launches == before
 
 
 @pytest.mark.parametrize("n,seed", [(1, 0), (257, 1), (4096, 2)])

@@ -298,3 +298,48 @@ def test_scene_other_devices_raise():
     t = _field_to(lambda x: _to_torch(x).to("meta"), _random_field(5, N=1))
     with pytest.raises(ValueError):
         tsk.scene(*t, OBS)
+
+
+def _torch_to_jax(x):
+    """A torch tensor as a JAX array of the same dtype (bf16 kept)."""
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(x.numpy())
+
+
+@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+def test_reference_matches_pallas_on_edge_scene(case):
+    """The card tests' yardstick on B1's edge cases (chip_smoke.edge_scene:
+    themed and unthemed tile entries for every theme, a negative kind and
+    kind 0 outside the grid, with the stamp groups of
+    chip_smoke.edge_groups: K = 300, 40 live slots stacked on one pixel
+    between dead ones, P = 40 at every offset), at 4 envs: the plain
+    version bitwise equal to the Pallas kernel in interpret mode."""
+    args = chip_smoke.edge_scene(case, 4, "cpu", seed=5)
+    (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
+     kinds, themes, groups, obs, qp, pad) = args
+    want = jsk.scene_tpu_raw(
+        *(_torch_to_jax(a) for a in (gridp, ty0, tx0, jy, jx, bg_i, theme,
+                                     bg_bank, tr_tab, tile_bank)),
+        kinds, themes, [tuple(_torch_to_jax(x) for x in g) for g in groups],
+        obs, qp, pad, interpret=True)
+    got = tsk.scene_raw(*args)
+    np.testing.assert_array_equal(
+        np.asarray(want, np.float32).view(np.int32),
+        got.float().numpy().view(np.int32))
+
+
+def test_edge_entries_cover_every_theme():
+    """chip_smoke.edge_entries: a themed entry of kinds 1 and 2 for every
+    theme, unthemed kind 1 after them (two blends in order on one cell),
+    and unthemed kinds 3, -5 and 0; every env theme in [-1, 6] occurs
+    among 64 envs of edge_scene."""
+    kinds, themes = chip_smoke.edge_entries()
+    assert len(kinds) <= tsk._MAX_ENTRIES
+    for t in range(chip_smoke.EDGE_THEMES):
+        assert {k for k, th in zip(kinds, themes) if th == t} == {1, 2}
+    unthemed = [k for k, th in zip(kinds, themes) if th < 0]
+    assert unthemed == [1, 3, -5, 0]
+    assert kinds.index(1) < len(kinds) - 4  # themed kind 1 first
+    theme = chip_smoke.edge_scene("stacked", 64, "cpu")[6]
+    assert set(theme.tolist()) == set(range(-1, chip_smoke.EDGE_THEMES + 1))

@@ -258,3 +258,85 @@ def test_stamps_other_devices_raise():
     group = tuple(t.to("meta") for t in random_group(rng, 4, 8, 3))
     with pytest.raises(ValueError):
         tsk.stamps(*group, OBS)
+
+
+def _pallas_groups(img, groups):
+    """The Pallas kernel (interpret mode) once per group, in order."""
+    out = img
+    for group in groups:
+        out = torch.from_numpy(np.asarray(pallas(out, group), np.float32)).to(
+            torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+def test_reference_matches_pallas_on_edge_slots(case):
+    """The card tests' yardstick on the edge cases of B3's staged slot
+    tables (chip_smoke.edge_groups: K = 300, 40 live slots stacked on one
+    pixel between dead ones, P = 40 at every offset), at 4 envs: the plain
+    version bitwise equal to the Pallas kernel, one group after another."""
+    img, groups = chip_smoke.edge_stamps(case, 4, "cpu", seed=3)
+    want = _pallas_groups(img, groups)
+    got = tsk.composite_reference(img, groups)
+    np.testing.assert_array_equal(bits(want), bits(got))
+    assert not torch.equal(got, img)  # the stamps drew something
+
+
+def _live_cover(group, r, c, obs=OBS):
+    """bool [N, K]: slot k of env n is live and covers pixel (r, c)."""
+    bank, var, scale, r0, c0 = group
+    V, P = bank.shape[0], bank.shape[-1]
+    r0 = r0.long().clamp(-P, obs)
+    c0 = c0.long().clamp(-P, obs)
+    return ((scale != 0) & (var >= 0) & (var < V) & (r0 <= r) & (r < r0 + P)
+            & (c0 <= c) & (c < c0 + P))
+
+
+def test_edge_groups_reach_the_staging_edges():
+    """What each edge case promises: K = 300 with live slots stacked across
+    the 256-slot pass boundary; 40 live slots on pixel (29, 35) with only
+    dead slots between them; P = 40 slots at every row and column offset
+    from -P-1 to obs+1 in every env."""
+    n = 4
+    (k300,) = chip_smoke.edge_groups("k300", n, "cpu")
+    assert k300[1].shape == (n, 300)
+    stack = k300[2][:, 250:262] != 0
+    assert stack.all() and (k300[1][:, 250:262] >= 0).all()
+    assert _live_cover(k300, 23, 33)[:, 250:262].sum(1).min() >= 2
+
+    stacked = chip_smoke.edge_groups("stacked", n, "cpu")
+    live = torch.cat([_live_cover(g, 29, 35) for g in stacked], dim=1)
+    assert (live.sum(1) == 40).all()
+    for g in stacked:
+        cover = _live_cover(g, 29, 35)
+        assert cover[:, 0::2].all() and not cover[:, 1::2].any()
+        # no odd slot is live anywhere in the frame
+        any_pixel = torch.zeros_like(cover[:, 1::2])
+        for r in range(0, OBS, 4):
+            for c in range(0, OBS, 4):
+                any_pixel |= _live_cover(g, r, c)[:, 1::2]
+        assert not any_pixel.any()
+
+    (p40,) = chip_smoke.edge_groups("p40", n, "cpu")
+    bank, var, scale, r0, c0 = p40
+    assert bank.shape[-1] == 40
+    offsets = set(range(-41, OBS + 2))
+    for e in range(n):
+        assert set(r0[e].tolist()) == offsets
+        assert set(c0[e].tolist()) == offsets
+    assert (scale != 0).all()
+
+
+def test_check_tiles_takes_rows_of_8_on_16_byte_boundaries():
+    """The wrappers of B1 and B3 refuse, on the card, an obs that is not a
+    multiple of 8 and a tensor that does not start on a 16-byte boundary:
+    the redesigned kernels read and write frame rows 8 bf16 at a time."""
+    x = torch.zeros(64, dtype=torch.bfloat16)
+    tsk.check_tiles(64, ("img", x))
+    tsk.check_tiles(8)
+    for obs in (60, 4, 65):
+        with pytest.raises(ValueError):
+            tsk.check_tiles(obs)
+    with pytest.raises(ValueError):
+        tsk.check_tiles(64, ("img", x[1:]))
+    tsk.check_tiles(64, ("img", x[8:]))
