@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the port's
 kernels from this checkout, holds each against its plain torch version,
-drives the main paths of coinrun, bossfight and climber at full width,
-drives the render entry points of the stamp-sum and expanded-field scene
+drives the main paths of coinrun, bossfight, climber and caveflyer at
+full width, drives the render entry points of the stamp-sum and expanded-field scene
 kernels on climber's real inputs, and checks the results.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
@@ -63,7 +63,18 @@ Phases (any failure raises, so the exit code is non-zero and the final
      expanded field bitwise equal to B1 on the raw inputs of the same
      state;
  10. where the time goes (climber), as in 5;
- 11. prints the kernels' JSON line (with each kernel's least possible
+ 11. caveflyer main path: make("caveflyer") -> generate_bank(1024) ->
+     reset(4096) -> lane 0's ship on its goal (+10) and the first other
+     lane's on a meteor, target or enemy ship (death, 0) -> 8 steps
+     writing obs into the uint8 buffer; the raw scene kernel's launches,
+     both lanes' termination and restart on step 0, shapes, dtypes,
+     rewards, obs and the envs with a live bullet are checked; the first 8
+     envs are re-run on the CPU and must match exactly at every step; the
+     scene kernel is then held against its plain version on caveflyer's
+     real inputs (four stamp groups, the smoke at fractional scales) and
+     on a hard-mode render (D = 40, 107 slots; 256 levels, reset, 2 steps);
+ 12. where the time goes (caveflyer), as in 5;
+ 13. prints the kernels' JSON line (with each kernel's least possible
      time on this card, `bound_ms`), then the `ok` line last.
 """
 from __future__ import annotations
@@ -82,7 +93,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
 import procgen2_tpu_torch as pt  # noqa: E402
 from procgen2_tpu_torch import random as prng  # noqa: E402
-from procgen2_tpu_torch.games import bossfight, climber, coinrun  # noqa: E402
+from procgen2_tpu_torch.games import (bossfight, caveflyer, climber,  # noqa: E402
+                                     coinrun)
 from procgen2_tpu_torch.render import compositor  # noqa: E402
 from procgen2_tpu_torch.render import scene_kernel, stamp_kernel  # noqa: E402
 from procgen2_tpu_torch.utils import (bank_gather, tree_map,  # noqa: E402
@@ -636,6 +648,32 @@ def place_climber_lanes(gs, n):
         [mob, crys]
 
 
+def place_caveflyer_lanes(gs, n):
+    """Of the first n lanes of a caveflyer State: lane 0's ship on its
+    goal (+10), and the first other lane with a meteor, else a live
+    target, else an enemy ship, on that hazard (death, 0). Their
+    velocities are zeroed. The lanes chosen depend only on the first n
+    lanes. Raises ValueError if none of lanes 1..n-1 has a hazard (an
+    easy cave often has none; after a reset every existing target is
+    alive, so no state the game reaches has one to place). Returns
+    (state, lanes)."""
+    lv = gs.level
+    pos, vel = gs.pos.clone(), gs.vel.clone()
+    pos[0] = lv.goal_pos[0]
+    hazards = ((lv.obst_pos, lv.obst_exists), (lv.target_pos, gs.target_alive),
+               (gs.enemy_pos, lv.enemy_exists))
+    found = [(i, where[i, int(alive[i].int().argmax())])
+             for i in range(1, n) for where, alive in hazards
+             if bool(alive[i].any())]
+    if not found:
+        raise ValueError(f"no hazard in caveflyer lanes 1..{n - 1}")
+    lane, spot = found[0]
+    pos[lane] = spot
+    lanes = [0, lane]
+    vel[lanes] = 0.0
+    return dataclasses.replace(gs, pos=pos, vel=vel), lanes
+
+
 def wall_ms(fn, iters=5):
     """Mean host wall time of fn() in ms, device synchronised, after one
     warm-up call."""
@@ -1044,6 +1082,108 @@ def climber_path(actions):
     return stamps_entry, scene_entry, launches, err1
 
 
+# envs of the first caveflyer steps with a live bullet: random actions fire
+# with probability 1/15 a step, so about 1 - (14/15)**8 = 40% of the envs
+# fire in 8 steps; a bullet lives until it strikes something, a step or
+# more in the cave
+CAVEFLYER_LIVE_BULLETS = 0.2
+
+
+def caveflyer_rewards():
+    """Every reward a caveflyer step can give: +10 at the goal and +3 per
+    target destroyed, in the last active sub-step."""
+    m = caveflyer.Config().max_obj
+    return tuple(sorted({10.0 * g + 3.0 * k for g in (0, 1)
+                         for k in range(3 * m + 1)}))
+
+
+def caveflyer_path(actions):
+    """Caveflyer's main path, its checks, the CPU re-run, the scene kernel
+    against its plain version on caveflyer's real inputs (four groups, the
+    smoke at fractional scales) and on a hard-mode render, and the
+    breakdown. Returns B1's main-path launches, error, and the times and
+    bounds on caveflyer's easy and hard inputs."""
+    env = pt.make("caveflyer")
+    bank = make_bank(env)
+    obs_buf = torch.empty((T, NUM_ENVS, 64, 64, 3), dtype=torch.uint8,
+                          device=env.device)
+
+    def place(gs):
+        return place_caveflyer_lanes(gs, CPU_ENVS)
+
+    states, out, lanes, launches = drive(env, bank, actions, obs_buf, place,
+                                         scene_kernel.scene_raw)
+    if launches != T + 1:
+        raise AssertionError(f"caveflyer's main path launched the scene "
+                             f"kernel {launches} times, expected {T + 1}")
+    rewards, dones = check_outputs(obs_buf, out, caveflyer_rewards())
+    g0 = states[0].game
+    for lane, want in zip(lanes, (10.0, 0.0)):
+        if not (bool(dones[0, lane]) and float(rewards[0, lane]) == want
+                and int(g0.t[lane]) == 0 and int(states[0].ep_length[lane]) == 0
+                and int(g0.num_bullets[lane]) == 0):
+            raise AssertionError(f"caveflyer lane {lane} did not end its "
+                                 f"episode with {want} and restart on step 0")
+    live = torch.zeros(NUM_ENVS, dtype=torch.bool, device=env.device)
+    for st in states:
+        g = st.game
+        live |= (caveflyer._ring_window(g.next_bullet, g.num_bullets)
+                 & (g.b_frame == 0.0)).any(1)
+    frac = float(live.float().mean())
+    if frac < CAVEFLYER_LIVE_BULLETS:
+        raise AssertionError(f"only {frac:.3f} of the caveflyer envs had a "
+                             f"live bullet in {T} steps")
+    log(f"caveflyer checks: obs {tuple(obs_buf.shape)} uint8 mean "
+        f"{float(obs_buf.float().mean()):.3f}; rewards of 10: "
+        f"{int((rewards >= 10).sum())}, with targets destroyed: "
+        f"{int((torch.remainder(rewards, 10) > 0).sum())}; terminations: "
+        f"{int(dones.sum())}; goal lane {lanes[0]} ended with 10, hazard "
+        f"lane {lanes[1]} with 0, both restarted on step 0; envs with a "
+        f"live bullet in {T} steps: {int(live.sum())} of {NUM_ENVS}")
+    cpu_rerun("caveflyer", bank, actions, obs_buf, states, out, place, lanes)
+    log(f"caveflyer CPU re-run of the first {CPU_ENVS} envs: bank, states, "
+        f"rewards, terminations and obs identical at every step "
+        f"({int(dones[:, :CPU_ENVS].sum())} auto-resets)")
+
+    cfg, gs = env.cfg, states[-1].game
+    inputs = caveflyer._scene_inputs(cfg, gs)
+    smoke = inputs[12][0][2]
+    frac_scales = int(((smoke > 0) & (smoke < 1)).sum())
+    if frac_scales == 0:
+        raise AssertionError("no smoke stamp at a fractional scale")
+    err, ms, plain_ms = scene_vs_plain(inputs, 20)
+    b, by = scene_bound(inputs)
+    log(f"scene kernel vs plain, caveflyer inputs N={NUM_ENVS} (groups K = "
+        f"{[g[1].shape[1] for g in inputs[12]]}, {frac_scales} smoke stamps "
+        f"at fractional scales): bitwise equal; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b:.4f} ms ({by})")
+
+    # hard mode: D = 40, M = 21 (107 slots), a 256-level bank, 2 steps
+    henv = pt.make("caveflyer", mode="hard")
+    hbank = henv.generate_bank(pt.random.key(0, henv.device), 256)
+    hstate, _ = henv.reset(hbank, pt.random.key(1, henv.device), NUM_ENVS)
+    for t in range(2):
+        hstate, _ = henv.step(hbank, hstate, actions[t], render=False)
+    hinputs = caveflyer._scene_inputs(henv.cfg, hstate.game)
+    herr, hms, hplain = scene_vs_plain(hinputs, 20)
+    hb, hby = scene_bound(hinputs)
+    log(f"scene kernel vs plain, caveflyer hard-mode inputs N={NUM_ENVS} "
+        f"(K = {[g[1].shape[1] for g in hinputs[12]]}): bitwise equal; "
+        f"kernel {hms:.4f} ms, plain {hplain:.4f} ms, bound {hb:.4f} ms "
+        f"({hby})")
+
+    img = scene_kernel.scene_raw(*inputs)
+    breakdown(env, bank, states[-1], actions[-1], obs_buf, [
+        ("scene inputs (caveflyer._scene_inputs)",
+         lambda: caveflyer._scene_inputs(cfg, gs)),
+        ("scene kernel (scene_raw, 4 groups)",
+         lambda: scene_kernel.scene_raw(*inputs)),
+        ("round / clip / uint8",
+         lambda: torch.clamp(torch.round(img), 0, 255).to(torch.uint8)),
+    ])
+    return launches, max(err, herr)
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1101,10 +1241,13 @@ def main():
     stamp = bossfight_path(actions)
     # ---- 8, 9, 10. climber: main path, entry points, breakdown ----
     sums, field, climber_launches, err1 = climber_path(actions)
+    # ---- 11, 12. caveflyer: main path, easy and hard B1, breakdown ----
+    cave_launches, err_c = caveflyer_path(actions)
 
-    # ---- 11. result ----
-    scene["launches"] += climber_launches  # both main paths that run B1
-    scene["max_abs_err"] = max(scene["max_abs_err"], err_r, err1)
+    # ---- 13. result ----
+    # the main paths that run B1: coinrun, climber and caveflyer
+    scene["launches"] += climber_launches + cave_launches
+    scene["max_abs_err"] = max(scene["max_abs_err"], err_r, err1, err_c)
     stamp["max_abs_err"] = max(stamp["max_abs_err"], serr_r)
     sums["max_abs_err"] = max(sums["max_abs_err"], err4_r)
     field["max_abs_err"] = max(field["max_abs_err"], err5_r)

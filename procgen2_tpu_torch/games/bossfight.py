@@ -16,12 +16,9 @@ Every function works on a batch: `generate` on a batch of keys [L, 2]
 random draws are the JAX package's, key for key (`..random`), and the
 arithmetic rounds where XLA CPU rounds: a multiply feeding an add whose
 product is inexact is one fused multiply-add there (`random._fma32`), and
-a division by a constant is a multiply by its f32 reciprocal. The one
-exception is the bullet volley's cos/sin, computed in float64 and rounded
-to f32: XLA's f32 cos/sin are not correctly rounded, so new bullets'
-velocities can differ from the JAX package's by an ulp or two
-(tests/test_torch_bossfight.py states the budget), while the CPU and the
-card agree exactly.
+a division by a constant is a multiply by its f32 reciprocal. The bullet
+volley's cos/sin are XLA CPU's (glibc's cosf/sinf, `..trig`), not
+correctly rounded but the same bits on the CPU and the card.
 
 The render is one launch of the stamp-over-frame kernel per
 `observe_batch`: four stamp groups (barriers + boss bullets, the boss
@@ -43,6 +40,7 @@ from ..physics.aabb import check_collision
 from ..render import atlas as atlas_lib
 from ..render import compositor as C
 from ..render import stamp_kernel
+from ..trig import sincos32
 
 NAME = "bossfight"
 NUM_ACTIONS = 15
@@ -438,10 +436,13 @@ def _fire_pattern(ring, boss_pos, pattern, attack_timer, key, bullet_speed):
         ((pattern >= 0) & timer_done) | passive_fire)[:, None]
     rots = torch.where(p == -1, aimed_rot[:, None], rots)
 
-    # float64 cos/sin rounded to f32: the same value on the CPU and the card
-    r64 = rots.double()
-    vels = torch.stack([torch.cos(r64).float(), -torch.sin(r64).float()],
-                       -1) * bullet_speed  # [N, 8, 2]
+    # XLA CPU's f32 cos/sin (glibc's), the same on the CPU and the card.
+    # Where the radial volley's angle feeds cos/sin, XLA CPU fuses
+    # pi/4 * i + (u * 2) * pi into one multiply-add (the stored rotation
+    # is rounded twice)
+    radial_fused = prng._fma32((u2 * 2)[:, None], _PI, radial[None, :])
+    cos, sin = sincos32(torch.where(p == 2, radial_fused, rots))
+    vels = torch.stack([cos, -sin], -1) * bullet_speed  # [N, 8, 2]
     for i in range(8):
         bb_pos, bb_vel, bb_rot, bb_frame, bb_num, bb_next = _ring_push(
             bb_pos, bb_vel, bb_rot, bb_frame, bb_num, bb_next,

@@ -163,3 +163,22 @@ def uniform(k: torch.Tensor, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
     lo = _batched(minval, k, shape, torch.float32)
     hi = _batched(maxval, k, shape, torch.float32)
     return torch.maximum(lo, _fma32(floats, hi - lo, lo))
+
+
+def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """`jax.random.categorical(k, logits)` over the last axis, int64
+    [...]: argmax(gumbel + logits), the first index on ties. `logits` is
+    f32 [..., C], its leading dims the key's batch dims.
+
+    The Gumbel noise is -log(-log(u)), u = uniform(minval=tiny, maxval=1),
+    taken in float64 and rounded once to f32. XLA CPU's f32 log is its own
+    polynomial, not correctly rounded, so a value may differ from JAX's
+    by an ulp; the argmax moves only where the two largest values lie
+    within that ulp, which held for none of 20,000 draws over half-open
+    20 x 20 masks (tests/test_torch_caveflyer.py holds it to the JAX
+    draw)."""
+    _check(k)
+    u = uniform(k, logits.shape[k.ndim - 1:],
+                minval=torch.finfo(torch.float32).tiny, maxval=1.0)
+    g = (-torch.log(-torch.log(u.double()))).to(torch.float32)
+    return torch.argmax(g + logits, dim=-1)

@@ -1,5 +1,5 @@
 """Procedural sprite atlas, backgrounds and pixel banks (numpy), for the
-games the port has: coinrun, bossfight and climber.
+games the port has: coinrun, bossfight, climber and caveflyer.
 
 The port's own copy of the JAX package's `procgen2_tpu/render/atlas.py`,
 cut to the sprites those games draw; everything kept is unchanged, so
@@ -470,6 +470,87 @@ def _register_bossfight():
             return img
 
         _REGISTRY[f"barrier{i}"] = barrier
+
+
+# ---------------------------------------------------------------------------
+# Caveflyer (games/caveflyer/tilemap.cpp:10-19, common_systems.cpp:77-88):
+# cave wall, green/red UFOs, meteor, enemy ship, laser, player ship, thrust
+# smoke (the explosion frames are bossfight's)
+# ---------------------------------------------------------------------------
+
+@sprite("cave_wall")
+def _cave_wall():
+    # Stand-in for assets/misc_assets/groundA.png
+    return _textured_tile("cave_wall", (0.5, 0.36, 0.28), border=(0.36, 0.26, 0.2))
+
+
+def _ufo(color):
+    img = _blank()
+    x, y = _grid()
+    body = np.clip((0.42 - np.hypot((x - 0.5) * 1.0, (y - 0.6) * 2.2)) * S / 1.5, 0, 1)
+    img = _fill(img, body, color)
+    dome = _disc(0.5, 0.42, 0.2)
+    img = _fill(img, dome, (0.75, 0.9, 0.95))
+    for lx in (0.25, 0.5, 0.75):
+        img = _fill(img, _disc(lx, 0.62, 0.045), (1.0, 1.0, 0.6))
+    return img
+
+
+_REGISTRY["ufo_green"] = lambda: _ufo((0.3, 0.8, 0.35))
+_REGISTRY["ufo_red"] = lambda: _ufo((0.85, 0.25, 0.25))
+
+
+@sprite("meteor")
+def _meteor():
+    img = _blank()
+    img = _fill(img, _disc(0.5, 0.5, 0.4), (0.55, 0.4, 0.3))
+    for (cx, cy, r) in [(0.4, 0.38, 0.09), (0.65, 0.6, 0.07), (0.35, 0.68, 0.06)]:
+        img = _fill(img, _disc(cx, cy, r), (0.42, 0.3, 0.22))
+    return img
+
+
+@sprite("enemy_ship")
+def _enemy_ship():
+    img = _blank()
+    x, y = _grid()
+    hull = np.clip((0.36 - (np.abs(x - 0.5) * 1.3 + np.abs(y - 0.5) * 0.8)) * S / 1.2, 0, 1)
+    img = _fill(img, hull, (0.3, 0.45, 0.85))
+    img = _fill(img, _disc(0.5, 0.45, 0.1), (0.7, 0.85, 0.95))
+    return img
+
+
+@sprite("laser")
+def _laser():
+    # Vertical blue bolt (laserBlue02.png is 13x37); drawn rotated
+    img = _blank()
+    x, y = _grid()
+    bolt = np.clip((0.16 - np.abs(x - 0.5)) * S / 2.0, 0, 1) * ((y > 0.05) & (y < 0.95))
+    img = _fill(img, bolt, (0.3, 0.75, 1.0))
+    core = np.clip((0.07 - np.abs(x - 0.5)) * S / 2.0, 0, 1) * ((y > 0.12) & (y < 0.88))
+    img = _fill(img, core, (0.85, 0.97, 1.0))
+    return img
+
+
+@sprite("ship_red")
+def _ship_red():
+    # Stand-in for assets/misc_assets/playerShip1_red.png (nose points up;
+    # the renderer adds rotation + pi/2, common_systems.cpp:323)
+    img = _blank()
+    x, y = _grid()
+    nose = np.clip((0.3 - np.abs(x - 0.5) * (0.4 + y * 1.6)) * S / 1.2, 0, 1) * (y < 0.85)
+    img = _fill(img, nose, (0.85, 0.2, 0.2))
+    wings = np.clip((0.45 - np.abs(x - 0.5)) * S / 1.2, 0, 1) * ((y > 0.55) & (y < 0.85))
+    img = _fill(img, wings * 0.9, (0.7, 0.15, 0.15))
+    img = _fill(img, _disc(0.5, 0.4, 0.09), (0.7, 0.9, 1.0))
+    return img
+
+
+@sprite("smoke")
+def _smoke():
+    # Stand-in for assets/misc_assets/towerDefense_tile295.png (thrust puff)
+    img = _blank()
+    img = _fill(img, _disc(0.5, 0.5, 0.4, soft=8.0), (0.85, 0.85, 0.85))
+    return img
 
 
 _register_wall_tiles()

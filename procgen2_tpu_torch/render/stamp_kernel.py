@@ -35,39 +35,46 @@ TILE_COLS = 8  # stamps::kTileCols: B1 and B3 move frame rows 8 bf16 at a time
 
 def blend_groups_reference(frame, groups):
     """Plain torch painter-order blend of stamp groups over `frame` bf16
-    [N, 3, obs, obs] (the semantics above); returns the new frame."""
-    obs = frame.shape[-1]
-    rr = torch.arange(obs, device=frame.device)
+    [N, 3, obs, obs] (the semantics above); returns the new frame. Each
+    slot reads and writes only the P x P window under its stamp, in a copy
+    of the frame padded by the largest P (so no window leaves it)."""
+    if not groups:
+        return frame
+    N, _, obs, _ = frame.shape
+    pad = max(g[0].shape[-1] for g in groups)
+    fp = torch.nn.functional.pad(frame, (pad, pad, pad, pad))
     for bank, var, scale, r0, c0 in groups:
         bank = bank.to(_BF16)
         for k in range(var.shape[1]):
-            contrib, m = _placed(bank, var[:, k], scale[:, k], r0[:, k],
-                                 c0[:, k], obs, rr)
-            blended = frame * (1.0 - contrib[:, 3:4]) + contrib[:, :3]
-            frame = torch.where(m[:, None], blended, frame)
-    return frame
+            idx, contrib, live = _window(bank, var[:, k], scale[:, k],
+                                         r0[:, k], c0[:, k], obs, pad)
+            win = fp[idx]
+            blended = win * (1.0 - contrib[:, 3:4]) + contrib[:, :3]
+            fp[idx] = torch.where(live[:, None, None, None], blended, win)
+    return fp[:, :, pad:pad + obs, pad:pad + obs]
 
 
-def _placed(bank, v, s, r0, c0, obs, rr):
-    """Slot k's stamp for every env: (contrib bf16 [N, 4, obs, obs] =
-    bf16(texel * scale), mask bool [N, obs, obs] of the pixels it covers,
-    skipped slots covering none)."""
+def _window(bank, v, s, r0, c0, obs, pad, channels=3):
+    """Slot k's stamp for every env, over its P x P window of a frame padded
+    by `pad` >= P: (index of the window [N, channels, P, P], contrib bf16
+    [N, 4, P, P] = bf16(texel * scale), live bool [N]: the slots not
+    skipped). The window starts at (r0, c0) clipped to [-P, obs]; its
+    pixels outside [0, obs) fall in the padding."""
     N = v.shape[0]
     V, _, P, _ = bank.shape
+    dev = v.device
     s = s.to(torch.float32)
     v = v.long()
     live = (s != 0) & (v >= 0) & (v < V)
-    dr = rr[None] - r0.long().clamp(-P, obs)[:, None]  # [N, obs]
-    dc = rr[None] - c0.long().clamp(-P, obs)[:, None]
+    ii = torch.arange(P, device=dev)
+    rows = r0.long().clamp(-P, obs)[:, None] + pad + ii  # [N, P]
+    cols = c0.long().clamp(-P, obs)[:, None] + pad + ii
+    idx = (torch.arange(N, device=dev)[:, None, None, None],
+           torch.arange(channels, device=dev)[None, :, None, None],
+           rows[:, None, :, None], cols[:, None, None, :])
     patch = bank[v.clamp(0, V - 1)]  # [N, 4, P, P]
-    rows = patch.gather(2, dr.clamp(0, P - 1)[:, None, :, None]
-                        .expand(N, 4, obs, P))
-    tex = rows.gather(3, dc.clamp(0, P - 1)[:, None, None, :]
-                      .expand(N, 4, obs, obs))
-    contrib = (tex.to(torch.float32) * s[:, None, None, None]).to(_BF16)
-    m = (live[:, None, None] & ((dr >= 0) & (dr < P))[:, :, None]
-         & ((dc >= 0) & (dc < P))[:, None, :])
-    return contrib, m
+    contrib = (patch.to(torch.float32) * s[:, None, None, None]).to(_BF16)
+    return idx, contrib, live
 
 
 def stamps_reference(prem_bank, var, scale, r0, c0, obs):
@@ -77,12 +84,15 @@ def stamps_reference(prem_bank, var, scale, r0, c0, obs):
     slot-ordered bf16 sums (the semantics above)."""
     bank = prem_bank.to(_BF16)
     N = var.shape[0]
-    rr = torch.arange(obs, device=var.device)
-    acc = torch.zeros((N, 4, obs, obs), dtype=_BF16, device=var.device)
+    P = bank.shape[-1]
+    acc = torch.zeros((N, 4, obs + 2 * P, obs + 2 * P), dtype=_BF16,
+                      device=var.device)
     for k in range(var.shape[1]):
-        contrib, m = _placed(bank, var[:, k], scale[:, k], r0[:, k],
-                             c0[:, k], obs, rr)
-        acc = torch.where(m[:, None], acc + contrib, acc)
+        idx, contrib, live = _window(bank, var[:, k], scale[:, k], r0[:, k],
+                                     c0[:, k], obs, P, channels=4)
+        win = acc[idx]
+        acc[idx] = torch.where(live[:, None, None, None], win + contrib, win)
+    acc = acc[:, :, P:P + obs, P:P + obs]
     return acc[:, :3], acc[:, 3:4]
 
 

@@ -1,5 +1,6 @@
 """The port's own asset modules (procgen2_tpu_torch/render/atlas.py and
-phases.py, numpy copies cut to what coinrun, bossfight and climber draw)
+phases.py, numpy copies cut to what coinrun, bossfight, climber and
+caveflyer draw)
 against the JAX package's: every bank these games build must be
 identical, array for array, and so must the asset tables, phase tables,
 window spans and expansion tables they come from."""
@@ -7,11 +8,13 @@ import numpy as np
 import pytest
 
 from procgen2_tpu.games import bossfight as jboss
+from procgen2_tpu.games import caveflyer as jcave
 from procgen2_tpu.games import climber as jclimb
 from procgen2_tpu.games import coinrun as jcoin
 from procgen2_tpu.render import atlas as jatlas
 from procgen2_tpu.render import phases as jphases
 from procgen2_tpu_torch.games import bossfight as tboss
+from procgen2_tpu_torch.games import caveflyer as tcave
 from procgen2_tpu_torch.games import climber as tclimb
 from procgen2_tpu_torch.games import coinrun as tcoin
 from procgen2_tpu_torch.render import atlas as tatlas
@@ -63,6 +66,16 @@ def test_climber_banks_identical(fn):
     args = (4,) if fn == "_scene_assets" else ()
     same_kept(getattr(jclimb, fn)(*args), getattr(tclimb, fn)(*args),
               f"climber.{fn}")
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("_assets", ()), ("_stamp_banks", ()), ("_scene_assets", (4, 20)),
+    ("_scene_assets", (4, 40)), ("_scene_assets", (4, 45))])
+def test_caveflyer_banks_identical(fn, args):
+    """The atlas and space backgrounds, the four pixel banks (objects,
+    bullets, ship, smoke) and the scene assets of the three cave sizes."""
+    same_kept(getattr(jcave, fn)(*args), getattr(tcave, fn)(*args),
+              f"caveflyer.{fn}{args}")
 
 
 def test_climber_merged_bank_identical():

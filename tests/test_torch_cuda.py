@@ -1,9 +1,9 @@
 """Tests of the port that need a CUDA card: the scene kernels (B1, B5)
 and the stamp kernels (B3, B4) against their plain torch versions
 (bitwise, B1 and B3 also on the edge cases of their staged slot tables),
-the kernel wrappers' checks, threefry words on the card, and
-coinrun, bossfight and climber on the card against the same games on the
-CPU.
+the kernel wrappers' checks, threefry words and cos32/sin32 on the card,
+and coinrun, bossfight, climber and caveflyer on the card against the
+same games on the CPU.
 
 They skip without a card. This file imports no jax, so it runs on a
 machine without it; there, skip the repo's conftest (which sets jax up):
@@ -18,7 +18,8 @@ import torch
 import chip_smoke
 import procgen2_tpu_torch as pt
 from procgen2_tpu_torch import random as R
-from procgen2_tpu_torch.games import climber
+from procgen2_tpu_torch import trig
+from procgen2_tpu_torch.games import caveflyer, climber
 from procgen2_tpu_torch.render import compositor
 from procgen2_tpu_torch.render import scene_kernel as sk
 from procgen2_tpu_torch.render import stamp_kernel as stk
@@ -475,3 +476,75 @@ def test_climber_entry_points_on_card(dev):
     want = stk.stamps_reference(b, v, s, r0, c0, 64)
     for g, w in zip(got, want):
         assert torch.equal(_bits(g), _bits(w))
+
+
+def test_trig_same_on_cuda(dev):
+    """cos32/sin32 (glibc's sincosf in float64 ops) give the same bits on
+    the card as on the CPU, across both reductions and the special
+    values."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.cat([
+        (torch.rand(200000, generator=g) - 0.5) * 14,
+        (torch.rand(200000, generator=g) - 0.5) * 400,
+        (torch.rand(100000, generator=g) - 0.5) * 2e4,
+        torch.exp((torch.rand(100000, generator=g) - 0.3) * 80),
+        torch.tensor([0.0, -0.0, 2.0 ** -13, 0.75, 120.0, -120.0,
+                      float("inf"), float("nan"), 3.4e38])]).float()
+    c, s = trig.sincos32(x.to(dev))
+    for want, got in ((trig.cos32(x), c), (trig.sin32(x), s)):
+        assert torch.equal(want.view(torch.int32), got.cpu().view(torch.int32))
+
+
+def test_caveflyer_scene_kernel_matches_plain(dev):
+    """B1 on caveflyer's real inputs, easy and hard: four stamp groups,
+    smoke at fractional scales (hard: 107 slots), bitwise."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    for mode in ("easy", "hard"):
+        env = pt.make("caveflyer", device=dev, mode=mode)
+        bank = env.generate_bank(R.key(5, env.device), 16)
+        state, _ = env.reset(bank, R.key(6, env.device), 257)
+        for _ in range(4):
+            a = torch.randint(0, 15, (257,), generator=g, device=dev)
+            state, _ = env.step(bank, state, a, render=False)
+        args = caveflyer._scene_inputs(env.cfg, state.game)
+        smoke = args[12][0][2]
+        assert len(args[12]) == 4 and ((smoke > 0) & (smoke < 1)).any()
+        got = sk.scene_raw(*args)
+        assert torch.equal(_bits(got), _bits(sk.scene_raw_reference(*args)))
+
+
+def test_caveflyer_on_card_matches_cpu(dev):
+    """make("caveflyer") on the card against make(device="cpu"), with a
+    lane on its goal (+10) and a lane on a hazard (death, 0), so that both
+    end and auto-reset on the card; 2 steps, then 2 more."""
+    n = 16
+    out = {}
+    for d in ("cpu", "cuda"):
+        env = pt.make("caveflyer", device=d)
+        bank = env.generate_bank(R.key(5, env.device), n)
+        state, ts = env.reset(bank, R.key(6, env.device), n)
+        gs, lanes = chip_smoke.place_caveflyer_lanes(state.game, n)
+        state = dataclasses.replace(state, game=gs)
+        frames, states, rewards = [ts.obs.cpu()], [], []
+        g = torch.Generator().manual_seed(0)
+        for _ in range(4):
+            a = torch.randint(0, 15, (n,), generator=g, dtype=torch.int32)
+            state, ts = env.step(bank, state, a.to(env.device))
+            frames.append(ts.obs.cpu())
+            states.append(tree_map(lambda x: x.cpu(), state))
+            rewards.append((ts.reward.cpu(), ts.terminated.cpu()))
+        out[d] = (states, rewards, frames, lanes)
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu[3] == gpu[3]
+    (reward0, done0), state0 = gpu[1][0], gpu[0][0]
+    assert done0[gpu[3]].all() and reward0[gpu[3]].tolist() == [10.0, 0.0]
+    assert state0.game.t[gpu[3]].tolist() == [0, 0]  # both lanes restarted
+    bad = []
+    for a, b in zip(cpu[0], gpu[0]):
+        tree_map(lambda x, y: None if torch.equal(x, y)
+                 else bad.append(x.shape), a, b)
+    assert not bad, bad
+    for (ra, da), (rb, db) in zip(cpu[1], gpu[1]):
+        assert torch.equal(ra, rb) and torch.equal(da, db)
+    for a, b in zip(cpu[2], gpu[2]):
+        assert torch.equal(a, b)

@@ -259,7 +259,7 @@ def test_port_imports_no_jax():
         sys.meta_path.insert(0, Blocker())
         import torch
         import procgen2_tpu_torch as pt
-        for game in ("coinrun", "bossfight", "climber"):
+        for game in ("coinrun", "bossfight", "caveflyer", "climber"):
             env = pt.make(game, device="cpu")
             bank = env.generate_bank(pt.random.key(0), 2)
             state, ts = env.reset(bank, pt.random.key(1), 2)

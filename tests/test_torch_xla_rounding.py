@@ -7,8 +7,10 @@ bit for bit, measured on the JAX package's own code paths:
 * a division by a constant is a multiply by the constant's f32
   reciprocal (bossfight's `/ MOVE_TIME`, `/ (2 pi / ROT_BINS)`);
 * f32 cos/sin are not correctly rounded, standalone or inside bossfight's
-  step, so the port's volley velocities (float64 cos/sin rounded once)
-  carry a budget (tests/test_torch_bossfight.py).
+  step: they are glibc's cosf/sinf, which the port transcribes
+  (`trig.py`), so its volley velocities are exact where float64 cos/sin
+  rounded once would differ (tests/test_torch_bossfight.py,
+  tests/test_torch_trig.py).
 
 Run as a script to print the rates:
 
@@ -24,6 +26,7 @@ import torch
 from procgen2_tpu.games import bossfight as jb
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import bossfight as tb
+from procgen2_tpu_torch.utils import convert
 
 
 def _words(ks):
@@ -77,7 +80,8 @@ def cos_sin_rounding(n=200000):
 def volley_rounding(n=512):
     """One bossfight step of n envs that all fire the radial volley
     (8 bullets each): the fraction of new velocity components that differ
-    from the port's, and the largest difference."""
+    from float64 cos/sin rounded once, the largest such difference, and
+    the number that differ from the port's step."""
     keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(7), i))(
         jnp.arange(n, dtype=jnp.uint32))
     lv = jax.jit(jax.vmap(functools.partial(jb.generate, jb.Config())))(keys)
@@ -89,11 +93,18 @@ def volley_rounding(n=512):
     out, *_ = jax.jit(jax.vmap(functools.partial(jb.step, jb.Config())))(
         st, jnp.full(n, 4, jnp.int32))
     rot = torch.from_numpy(np.array(out.bb_rot)[:, :8]).double()
-    port = (torch.stack([torch.cos(rot).float(), -torch.sin(rot).float()], -1)
-            * tb.Config().bullet_speed).numpy()
+    f64 = (torch.stack([torch.cos(rot).float(), -torch.sin(rot).float()], -1)
+           * tb.Config().bullet_speed).numpy()
     want = np.asarray(out.bb_vel)[:, :8]
-    return (_differ(want, port) / want.size,
-            float(np.abs(want.astype(np.float64) - port).max()))
+    numpy_st = jax.tree.map(
+        lambda a: (np.asarray(jax.random.key_data(a))
+                   if jnp.issubdtype(a.dtype, jax.dtypes.prng_key)
+                   else np.asarray(a)), st)
+    port, *_ = tb.step(tb.Config(), convert.state(tb, numpy_st, "cpu"),
+                       torch.full((n,), 4, dtype=torch.int32))
+    return (_differ(want, f64) / want.size,
+            float(np.abs(want.astype(np.float64) - f64).max()),
+            _differ(want, port.bb_vel[:, :8].numpy()))
 
 
 def test_uniform_is_one_fused_multiply_add():
@@ -112,8 +123,11 @@ def test_cos_sin_are_not_correctly_rounded():
 
 
 def test_volley_velocities_within_the_budget():
-    frac, err = volley_rounding(64)
+    """Float64 cos/sin rounded once miss XLA's volley velocities by a
+    little; the port's (glibc's cosf/sinf, the fused angle) by nothing."""
+    frac, err, port = volley_rounding(64)
     assert frac > 0 and err <= tb.Config().bullet_speed * 2.0 ** -19
+    assert port == 0
 
 
 if __name__ == "__main__":
@@ -129,8 +143,8 @@ if __name__ == "__main__":
               f"{vs_f32:.4%}, from float64 rounded once in {vs_f64:.4%}; "
               f"max error vs float64 {err:.3e}")
     for n in (8, 2000):
-        frac, err = volley_rounding(n)
+        frac, err, port = volley_rounding(n)
         print(f"bossfight step, {n} envs firing the radial volley: "
-              f"{frac:.4%} of new velocity components differ from the port's, "
-              f"max |diff| {err:.3e} (budget "
-              f"{tb.Config().bullet_speed * 2.0 ** -19:.3e})")
+              f"{frac:.4%} of new velocity components differ from float64 "
+              f"cos/sin rounded once, max |diff| {err:.3e}; {port} differ "
+              f"from the port's")
