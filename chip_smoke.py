@@ -1,8 +1,9 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the port's
 kernels from this checkout, holds each against its plain torch version,
 drives the main paths of coinrun, bossfight, climber and caveflyer at
-full width, drives the render entry points of the stamp-sum and expanded-field scene
-kernels on climber's real inputs, and checks the results.
+full width, drives the render entry points of the stamp-sum and
+expanded-field scene kernels on climber's real inputs, and checks the
+results.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -22,11 +23,16 @@ Phases (any failure raises, so the exit code is non-zero and the final
      (B4) on groups with P = 8, 12 and 20; the expanded-field scene kernel
      (B5) on a random scene of 5 tile entries (two themed) and two groups.
      The random groups have out-of-range variants, scale 0, fractional
-     scales, stamps off every edge and overlaps. Then B3 and B1 on the
+     scales, stamps off every edge and overlaps. Then B3, B1 and B4 on the
      edge cases of their staged slot tables at 257 envs (edge_groups:
      K = 300, 40 live slots stacked on one pixel between dead ones, P = 40
-     at every offset; B1 with themed and unthemed entries for every theme),
-     bitwise;
+     at every offset; B1 with themed and unthemed entries for every
+     theme), and B5 on a kind field of fractions, -0.0, negative kinds,
+     kinds beyond int8, infinities and NaN (edge_field), bitwise; and
+     stamp groups off the kernel path (chaser's (P, K): (8, 6), (7, 6),
+     (6, 6)) through `compositor.stamps_from_pixel_bank` and
+     `composite_stamps`, which must launch no kernel and equal the same
+     calls on the CPU (the reference's matmul semantics) bitwise;
   4. coinrun main path: generate_bank(1024) -> reset(4096) -> lanes 0-2
      placed on the coin, a saw and lava -> 8 steps writing obs into a
      uint8 [8, 4096, 64, 64, 3] buffer; the launch count shows the path
@@ -56,12 +62,15 @@ Phases (any failure raises, so the exit code is non-zero and the final
      dtypes, rewards and obs are checked; the first 8 envs are re-run on
      the CPU and must match exactly at every step;
   9. climber's render entry points: `compositor.stamps_from_pixel_bank`
-     on climber's merged crystal/mob/agent group (B4) and
+     on climber's merged crystal/mob/agent group (B4: P = 8, K = 35, on
+     the kernel path) and
      `scene_kernel.scene` on climber's expanded field (B5), each launched
      once with its count set to 0 before; then B1, B4 and B5 each held
      against its plain version on these real inputs, and B5 on the
      expanded field bitwise equal to B1 on the raw inputs of the same
-     state;
+     state; both kernels timed against their bounds, and by ablation of
+     their inputs: B5 with no stamps, no tile blend or neither, B4 with
+     every slot dead;
  10. where the time goes (climber), as in 5;
  11. caveflyer main path: make("caveflyer") -> generate_bank(1024) ->
      reset(4096) -> lane 0's ship on its goal (+10) and the first other
@@ -353,16 +362,22 @@ def random_stamps(n, dev, seed=0):
 EDGE_CASES = ("k300", "stacked", "p40")
 
 
-def edge_groups(case, n, dev, seed=0, obs=64):
-    """Stamp groups at the edges of the staged slot tables of B1 and B3
+STACKED = ((5, 8, 48), (4, 12, 32))  # (V, P, K) of the "stacked" groups
+SUM_STACKED = ((5, 8, 80),)  # B4 takes one group: its 40 live slots
+
+
+def edge_groups(case, n, dev, seed=0, obs=64, stacked=STACKED):
+    """Stamp groups at the edges of the staged slot tables of the kernels
     (csrc/stamps.cuh), with live slots at fractional scales so that the
-    order of their blends shows:
+    order of their blends or sums shows:
       * "k300": one group of K = 300 (P = 8): more slots than one staging
         pass takes (256); slots 250-261 are live and stacked across the
         pass boundary;
-      * "stacked": two groups (P = 8, K = 48; P = 12, K = 32) whose even
-        slots, 40 in all, are live and cover pixel (29, 35); the odd slots
-        between them are dead (scale 0, var -1, var V, or off the frame);
+      * "stacked": one group per (V, P, K) of `stacked` (by default two,
+        P = 8, K = 48 and P = 12, K = 32; SUM_STACKED is one group of
+        K = 80) whose even slots, 40 in all, are live and cover pixel
+        (29, 35); the odd slots between them are dead (scale 0, var -1,
+        var V, or off the frame);
       * "p40": one group of P = 40 with a slot at every row offset from -P-1
         to obs+1 and every column offset, shifted per env, so that P = 40
         stamps start and end at every column of a lane's 8-pixel run and
@@ -387,7 +402,7 @@ def edge_groups(case, n, dev, seed=0, obs=64):
         return [(bank, var, scale, r0, c0)]
     if case == "stacked":
         groups = []
-        for V, P, K in ((5, 8, 48), (4, 12, 32)):
+        for V, P, K in stacked:
             bank, var, scale, r0, c0 = random_group(g, n, dev, V, P, K, obs)
             live = slice(0, K, 2)
             var[:, live] = ri(0, V, (n, K // 2))
@@ -414,6 +429,14 @@ def edge_groups(case, n, dev, seed=0, obs=64):
         scale = torch.where(scale == 0.0, fractions((n, span)), scale)
         return [(bank, var, scale.contiguous(), r0, c0)]
     raise ValueError(f"unknown edge case {case!r}")
+
+
+def edge_sum_group(case, n, dev, seed=0):
+    """B4's input for an edge case: the one group of edge_groups, for
+    "stacked" the one group of SUM_STACKED (40 live slots on pixel
+    (29, 35) in one group)."""
+    (group,) = edge_groups(case, n, dev, seed, stacked=SUM_STACKED)
+    return group
 
 
 def edge_stamps(case, n, dev, seed=0):
@@ -469,6 +492,44 @@ def edge_scene(case, n, dev, seed=0):
     tr_tab = coinrun._scene_tensors(qp, str(dev))["tr_tab"]
     return (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
             kinds, themes, edge_groups(case, n, dev, seed), obs, qp, pad)
+
+
+# kinds of edge_field's kind channel: integers in int8 (-0.0 among them),
+# fractions, integers beyond int8, infinities and a NaN
+ODD_KINDS = (0.0, -0.0, 1.0, 2.0, 3.0, -5.0, 7.0, -128.0, 127.0, 0.5, -0.5,
+             1.5, -2.25, 127.5, 128.0, -130.0, 200.0, 1000.0, float("inf"),
+             float("-inf"), float("nan"))
+BIG_KINDS = (128, -130, 1000)  # entry kinds beyond int8, unthemed
+
+
+def edge_field(n, dev, seed=0):
+    """B5's inputs at the edges of its kind lookup: the entries of
+    edge_entries, then unthemed entries of the kinds BIG_KINDS; a kind
+    channel of ODD_KINDS (as bf16); backgrounds of whole values in
+    [0, 255]; joint phases in [-1, NPH] and env themes in
+    [-1, EDGE_THEMES]; two random stamp groups (random_group)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 3000)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    kinds, themes = edge_entries()
+    kinds, themes = kinds + BIG_KINDS, themes + (-1,) * len(BIG_KINDS)
+    obs, nph, ne = 64, 4, len(kinds)
+    palette = torch.tensor(ODD_KINDS, device=dev)
+    X = torch.cat([palette[ri(0, len(ODD_KINDS), (n, 1, obs, obs)).long()],
+                   ri(0, 256, (n, 3, obs, obs)).float()],
+                  dim=1).to(torch.bfloat16)
+    a = torch.rand((nph, ne, 1, obs, obs), generator=g, device=dev)
+    tile_bank = torch.cat([torch.rand((nph, ne, 3, obs, obs), generator=g,
+                                      device=dev) * 255 * a, a],
+                          dim=2).to(torch.bfloat16)
+    groups = [random_group(g, n, dev, 6, 8, 5, obs),
+              random_group(g, n, dev, 4, 12, 2, obs)]
+    return (X, ri(-1, nph + 1, (n,)), ri(-1, EDGE_THEMES + 1, (n,)),
+            tile_bank, kinds, themes, groups, obs)
 
 
 SUM_GROUP_SHAPES = ((6, 8, 17), (5, 12, 9), (4, 20, 5))  # (V, P, K)
@@ -529,24 +590,86 @@ def vs_plain(what, kernel, plain, args, iters):
 
 
 def edges_vs_plain(n, dev):
-    """B3 and B1 on each edge case (edge_stamps, edge_scene) at n envs,
-    bitwise equal to their plain versions. These launches are not the
-    main path's and are not counted there."""
+    """Each kernel on the edge cases of its staged slot table at n envs,
+    bitwise equal to its plain version: B3 and B1 on edge_stamps and
+    edge_scene, B4 on edge_sum_group, for each case; B5 on edge_field's
+    odd kinds. These launches are not the main path's and are not counted
+    there."""
+    def same(what, kernel, plain, args, case):
+        got, want = kernel(*args), plain(*args)
+        if isinstance(got, tuple):
+            got, want = torch.cat(got, dim=1), torch.cat(want, dim=1)
+        torch.cuda.synchronize()
+        ndiff, err = bitwise_diff(got, want)
+        if ndiff:
+            raise AssertionError(f"{what} differs from its plain version on "
+                                 f"edge case {case} in {ndiff} values (max "
+                                 f"abs err {err})")
+
     for case in EDGE_CASES:
-        for what, kernel, plain, args in (
-                ("stamp kernel", stamp_kernel.composite,
-                 stamp_kernel.composite_reference, edge_stamps(case, n, dev)),
-                ("scene kernel", scene_kernel.scene_raw,
-                 scene_kernel.scene_raw_reference, edge_scene(case, n, dev))):
-            got, want = kernel(*args), plain(*args)
-            torch.cuda.synchronize()
-            ndiff, err = bitwise_diff(got, want)
+        same("stamp kernel", stamp_kernel.composite,
+             stamp_kernel.composite_reference, edge_stamps(case, n, dev), case)
+        same("scene kernel", scene_kernel.scene_raw,
+             scene_kernel.scene_raw_reference, edge_scene(case, n, dev), case)
+        same("stamp-sum kernel", stamp_kernel.stamps,
+             stamp_kernel.stamps_reference,
+             (*edge_sum_group(case, n, dev), 64), case)
+    same("expanded-field scene kernel", scene_kernel.scene,
+         scene_kernel.scene_reference, edge_field(n, dev), "odd kinds")
+    log(f"edge cases {', '.join(EDGE_CASES)} at N={n}: the stamp, scene and "
+        f"stamp-sum kernels bitwise equal to their plain versions; the "
+        f"expanded-field scene kernel on odd kinds ({len(ODD_KINDS)} kind "
+        f"values: fractions, -0.0, beyond int8, infinities, NaN) too")
+
+
+def off_kernel_groups(n, dev):
+    """Stamp groups off the kernel path (compositor.stamp_kernel_ok false:
+    chaser's (P, K) of (8, 6), (7, 6) and (6, 6)) through
+    `stamps_from_pixel_bank` and `composite_stamps` on the card, with
+    overlapping stamps and alphas 1, 0.7 and 0.3: no kernel launches, and
+    the results bitwise equal to the same functions on the CPU (the
+    reference's matmul semantics)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4000)
+    for P in (8, 7, 6):
+        K = 6
+        if compositor.stamp_kernel_ok(P, K):
+            raise AssertionError(f"(P, K) = ({P}, {K}) is on the kernel path")
+        bank, var, _, r0, c0 = random_group(g, n, dev, 5, P, K, 64)
+        r0 = (r0[:, :1] + torch.randint(0, 6, (n, K), generator=g,
+                                        device=dev)).to(torch.int32)
+        c0 = (c0[:, :1] + torch.randint(0, 6, (n, K), generator=g,
+                                        device=dev)).to(torch.int32)
+        alives = torch.rand((n, K), generator=g, device=dev) < 0.8
+        alpha = torch.tensor([1.0, 0.7, 0.3], device=dev)[torch.randint(
+            0, 3, (n, K), generator=g, device=dev)]
+        img = torch.randint(0, 256, (n, 3, 64, 64), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.bfloat16)
+        args = (bank, var, r0, c0)
+        kw = dict(alives=alives, alpha=alpha)
+        before = (stamp_kernel.stamps.launches, stamp_kernel.composite.launches)
+        got = (*compositor.stamps_from_pixel_bank(*args, **kw),
+               compositor.composite_stamps(img, *args, **kw))
+        torch.cuda.synchronize()
+        if (stamp_kernel.stamps.launches,
+                stamp_kernel.composite.launches) != before:
+            raise AssertionError(f"an off-kernel group (P = {P}) launched a "
+                                 "stamp kernel")
+        cpu = [t.cpu() for t in args]
+        ckw = {k: v.cpu() for k, v in kw.items()}
+        want = (*compositor.stamps_from_pixel_bank(*cpu, **ckw),
+                compositor.composite_stamps(img.cpu(), *cpu, **ckw))
+        for a, b in zip(got, want):
+            ndiff, err = bitwise_diff(a.cpu(), b)
             if ndiff:
-                raise AssertionError(f"{what} differs from its plain version "
-                                     f"on edge case {case} in {ndiff} values "
-                                     f"(max abs err {err})")
-    log(f"edge cases {', '.join(EDGE_CASES)} at N={n}: the stamp and scene "
-        f"kernels bitwise equal to their plain versions")
+                raise AssertionError(f"an off-kernel group (P = {P}) differs "
+                                     f"on the card from the CPU in {ndiff} "
+                                     f"values (max abs err {err})")
+        if not bool((got[1] != 0).any()):
+            raise AssertionError("the off-kernel groups drew nothing")
+    log(f"off-kernel stamp groups (P, K) = (8, 6), (7, 6), (6, 6) at N={n}: "
+        f"no kernel launched; stamps_from_pixel_bank and composite_stamps "
+        f"bitwise equal to the CPU's matmul semantics")
 
 
 def scene_vs_plain(args, iters):
@@ -562,6 +685,29 @@ def sum_vs_plain(group, iters):
 def field_vs_plain(args, iters):
     return vs_plain("expanded-field scene kernel", scene_kernel.scene,
                     scene_kernel.scene_reference, args, iters)
+
+
+def ablations(field, group, iters=20):
+    """Where B5's and B4's time goes on these inputs, by taking work out of
+    the inputs (the kernels run as they are): B5 with no stamp groups,
+    with entry kinds that match no pixel (no tile blend), and with
+    neither (X read, masks found, output written); B4 with every slot
+    dead (the frame written as zeros). Returns {name: ms}."""
+    X, p_joint, theme, tile_bank, kinds, themes, groups, obs = field
+    no_match = tuple(1000 + i for i in range(len(kinds)))
+    bank, var, scale, r0, c0 = group
+    cases = {
+        "B5 without stamps": (scene_kernel.scene, (
+            X, p_joint, theme, tile_bank, kinds, themes, [], obs)),
+        "B5 without tile blends": (scene_kernel.scene, (
+            X, p_joint, theme, tile_bank, no_match, themes, groups, obs)),
+        "B5 without either": (scene_kernel.scene, (
+            X, p_joint, theme, tile_bank, no_match, themes, [], obs)),
+        "B4 with every slot dead": (stamp_kernel.stamps, (
+            bank, var, torch.zeros_like(scale), r0, c0, obs)),
+    }
+    return {name: cuda_ms(lambda: fn(*args), iters)
+            for name, (fn, args) in cases.items()}
 
 
 def stamps_vs_plain(img, groups, iters):
@@ -1020,6 +1166,8 @@ def climber_path(actions):
     inputs = climber._scene_inputs(cfg, gs)
     field = climber._scene_field(cfg, gs)
     bank_, var, scale, r0, c0 = field[6][0]
+    if not compositor.stamp_kernel_ok(bank_.shape[-1], var.shape[1]):
+        raise AssertionError("climber's merged group is off the kernel path")
     stamp_kernel.stamps.launches = 0
     scene_kernel.scene.launches = 0
     summed = compositor.stamps_from_pixel_bank(bank_, var, r0, c0,
@@ -1059,6 +1207,9 @@ def climber_path(actions):
         f"bitwise equal, and bitwise equal to the raw scene kernel on the "
         f"same state; kernel {ms5:.4f} ms, plain {plain5:.4f} ms, bound "
         f"{b5:.4f} ms ({by5})")
+
+    for name, ms in ablations(field, group).items():
+        log(f"ablation, climber inputs N={NUM_ENVS}: {name} {ms:.4f} ms")
 
     breakdown(env, bank, states[-1], actions[-1], obs_buf, [
         ("scene inputs (climber._scene_inputs)",
@@ -1223,6 +1374,7 @@ def main():
             f"N={NUM_ENVS}: bitwise equal; kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {b:.4f} ms ({by})")
     edges_vs_plain(EDGE_ENVS, dev)
+    off_kernel_groups(EDGE_ENVS, dev)
     field_args = random_field(NUM_ENVS, dev)
     err5_r, ms, plain = field_vs_plain(field_args, 20)
     b, by = bound(*field_work(field_args))

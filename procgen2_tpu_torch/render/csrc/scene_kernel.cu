@@ -6,12 +6,12 @@
 // procgen2_tpu/render/scene_kernel.py `_scene_kernel_raw` (launched by
 // `_scene_raw`, entry `scene_tpu_raw`), with its stamp loop
 // `_blend_stamps_ref` as the staged slot list of stamps.cuh
-// (`stage_slots`, `blend_slots`, shared with B3).
+// (`stage_slots`, `stamp_pass`, shared with B3, B4 and B5).
 // (B5) scene_kernel replaces the Pallas TPU kernel `_scene_kernel` of the
 // same file (launched by `_scene`, entry `scene_tpu`): B1 without step 1,
 // reading the kind field and the background from a pre-expanded field
 // X [N, 4, OBS, OBS] (channel 0 the kind, 1-3 the background), with the
-// stamp loop `blend_stamps` (stamps.cuh).
+// same staged stamp loop.
 //
 // What they compute, per env e and output pixel (r, c):
 //   1. the kind field and background under the pixel. B1 reads them from
@@ -20,10 +20,12 @@
 //        G = grid[e, y, x],  frame = bg_bank[bg_i, :, y, x];
 //      a read outside the grid gives 0, as the TPU's 0/1 selector
 //      contraction does; jy and jx are clamped to [0, QP). B5 reads
-//      G = X[e, 0, r, c] and frame = X[e, 1:4, r, c], and its joint
-//      phase p_joint clamped to [0, NPH);
-//   2. every tile entry i in order, where G == entry_kind[i] and the entry
-//      is unthemed or matches the env's theme:
+//      G = X[e, 0, r, c] (a bf16 value, not always an integer) and
+//      frame = X[e, 1:4, r, c], and its joint phase p_joint clamped to
+//      [0, NPH);
+//   2. every tile entry i in order, where G == entry_kind[i] (for B5 the
+//      f32 comparison G == (float)entry_kind[i]) and the entry is
+//      unthemed or matches the env's theme:
 //        frame = frame * (1 - a) + rgb   (tile_bank[phase, i]);
 //   3. every stamp group in order, every slot in order (painter order):
 //      skip a slot with scale == 0 or var outside [0, V); place
@@ -36,7 +38,7 @@
 //   versions (`scene_raw_reference`, `scene_reference`) and of the JAX
 //   package's bf16 ops.
 //
-// Design of B1 (redesigned for Hopper; before, it was B5's design below):
+// Design of B1 (redesigned for Hopper; before, one thread per pixel):
 // the bound is bytes, the 100.7 MB bf16 output at 4096 envs plus the grid
 // cells, background texels and tile texels under the env windows (a few
 // MB, L2-resident). The one-thread-per-pixel design spent its time issuing
@@ -67,16 +69,43 @@
 // barriers, the scalar and phase-table loads) and the staging barriers,
 // hidden by 4 resident blocks per SM (64 registers), and the blends.
 //
-// Design of B5 (unchanged): one thread per output pixel, a block of 256
-// threads covers 4 rows of one env, blockIdx.x is the env; each pixel's
-// blend chain is independent, so no synchronisation and no shared memory.
-// What bounds it: it reads the 8-byte field X (134.2 MB at 4096 envs) plus
-// the matching tile entries and stamps and writes 6 bytes per pixel
-// (100.7 MB); it repeats the per-slot scalar loads in every thread of the
-// block (served from L1 as broadcasts). The TPU kernels' selector
-// matmuls, lane rolls, 128-lane f32 bank padding and 16-env blocks answer
-// TPU constraints and are not carried over.
+// Design of B5 (redesigned for Hopper after B1; before, one thread per
+// pixel read X as four 2-byte loads, compared its kind with every tile
+// entry, decoded every slot of every group and stored 2 bytes at a time):
+// the bound is bytes, X read once (8 bytes per pixel, 134.2 MB at 4096
+// envs) and the 6-byte output written once (100.7 MB), plus the tile
+// texels under matching kinds (L2-resident). Now B1's layout, one block
+// of 256 threads per env, a 16 x 16 region per warp, an 8-pixel run per
+// lane, and
+//   * per env, in shared memory: for each int8 kind value, the mask of
+//     the tile entries that match it and the env's theme. The joint phase
+//     (clamped) and the theme are read by every thread from global memory
+//     (one broadcast load per warp), which spares a barrier;
+//   * the run's four X channel rows are copied into shared memory as
+//     16-byte asynchronous copies (cp.async), those of both passes before
+//     the mask table is built and the slot table staged, so that all
+//     these loads are in flight together; the tile blends then run in
+//     `stamp_pass`'s hook, between the staging and the stamps. With the
+//     rows read into registers, pass by pass, B5 took 0.128 ms on
+//     climber's field at 4096 envs with no tile blend and no stamp left in
+//     its inputs, against 0.164 ms with them (chip_smoke's ablation on an
+//     H100 SXM at 700 W; bound 0.071 ms): the loads, not the blends, held
+//     the time. The copies ahead took it to 0.134 ms;
+//   * the kind is a bf16 float here: a pixel takes the table's mask only
+//     when its kind is an integer in [-128, 127] (-0.0 is 0), and
+//     otherwise compares it with every entry as floats (`entry_mask`), so
+//     a fraction matches nothing and an integer beyond int8 matches the
+//     entries of that kind, as the float comparison does. Each pixel's
+//     mask is found once per run and kept in shared memory for the
+//     entries' blends;
+//   * an entry's 8 texels of one channel under a run are one 16-byte load;
+//   * the stamps go through the staged slot table (stamps.cuh);
+//   * the output is stored as 16-byte vectors.
+// The TPU kernels' selector matmuls, lane rolls, 128-lane f32 bank
+// padding and 16-env blocks answer TPU constraints and are not carried
+// over.
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,7 +116,6 @@ namespace {
 using stamps::SlotList;
 using stamps::StampGroups;
 using stamps::blend;
-using stamps::blend_stamps;
 using stamps::clampi;
 using stamps::kStageSlots;
 using stamps::kTileCols;
@@ -95,8 +123,7 @@ using stamps::ld;
 using stamps::Run;
 
 constexpr int kMaxEntries = 32;
-constexpr int kMaxObs = 256;   // B1: rows and columns staged per env
-constexpr int kThreads = 256;  // B5: one thread per pixel
+constexpr int kMaxObs = 256;  // B1: rows and columns staged per env
 
 // The tile entries' kinds and themes travel as kernel parameters.
 struct TileEntries {
@@ -105,22 +132,19 @@ struct TileEntries {
   int n;
 };
 
-// Step (2) at one pixel: tb points at the pixel's texel of entry 0 of
-// the env's phase in the tile bank [NPH, NE, 4, OBS, OBS]. The kind G is
-// an int (B1, from the grid) or a float (B5, from the bf16 field).
-template <typename Kind>
-__device__ __forceinline__ void blend_tiles(float f[3], Kind G, int th,
-                                            const __nv_bfloat16* tb,
-                                            const TileEntries& entries,
-                                            int npix) {
+// Entry t of an env's table of int8 kinds: the mask of the tile entries
+// (bit i = entry i) whose kind is (int8_t)t and whose theme is -1 or the
+// env's theme th.
+__device__ __forceinline__ uint32_t int8_kind_mask(const TileEntries& entries,
+                                                   int t, int th) {
+  const int kind = (int)(int8_t)t;
+  uint32_t m = 0;
+#pragma unroll 8
   for (int i = 0; i < entries.n; ++i) {
-    if (G != (Kind)entries.kind[i]) continue;
     const int want = entries.theme[i];
-    if (want >= 0 && want != th) continue;
-    const __nv_bfloat16* t = tb + (size_t)i * 4 * npix;
-    const float rgb[3] = {ld(t), ld(t + npix), ld(t + 2 * npix)};
-    blend(f, rgb, ld(t + 3 * npix));
+    if (entries.kind[i] == kind && (want < 0 || want == th)) m |= 1u << i;
   }
+  return m;
 }
 
 // B1: one block per env; each warp a 16 x 16 pixel region, each lane an
@@ -167,16 +191,7 @@ scene_raw_kernel(const int8_t* __restrict__ grid,
     env_y[i] = env[0] + pad + tr_tab[py * obs + i];
     env_x[i] = env[1] + pad + tr_tab[px * obs + i];
   }
-  {
-    const int kind = (int)(int8_t)t;
-    uint32_t m = 0;
-#pragma unroll 8
-    for (int i = 0; i < entries.n; ++i) {
-      const int want = entries.theme[i];
-      if (entries.kind[i] == kind && (want < 0 || want == th)) m |= 1u << i;
-    }
-    kind_mask[t] = m;
-  }
+  kind_mask[t] = int8_kind_mask(entries, t, th);
   __syncthreads();
 
   const bool bg_ok = b >= 0 && b < NB;
@@ -245,7 +260,8 @@ scene_raw_kernel(const int8_t* __restrict__ grid,
       }
     }
     // (3) stamp groups in painter order
-    stamps::stamp_pass(f, u, groups, e, obs, pass, slots, n);
+    stamps::stamp_pass(f, u, groups, e, obs, pass, slots, n,
+                       stamps::BlendOp());
     if (u.active) {
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
@@ -257,39 +273,135 @@ scene_raw_kernel(const int8_t* __restrict__ grid,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The mask of the tile entries that match kind G at an env (bit i =
+// entry i), as the f32 comparison G == (float)entry_kind[i] and the theme
+// test decide: an integer G in [-128, 127] (-0.0 included) is looked up
+// in the env's table of int8 kinds; any other G (a fraction, an integer
+// beyond int8, an infinity, a NaN) is compared with every entry.
+__device__ __forceinline__ uint32_t entry_mask(float G,
+                                               const uint32_t* kind_mask,
+                                               const TileEntries& entries,
+                                               int th) {
+  const int k = __float2int_rz(G);
+  if (__int2float_rn(k) == G && k >= -128 && k <= 127) {
+    return kind_mask[k & 255];
+  }
+  uint32_t m = 0;
+  for (int i = 0; i < entries.n; ++i) {
+    const int want = entries.theme[i];
+    if (G == __int2float_rn(entries.kind[i]) && (want < 0 || want == th)) {
+      m |= 1u << i;
+    }
+  }
+  return m;
+}
+
+// B5: B1's layout (stamps.cuh) over the expanded field X. Staged per env
+// in shared memory: for each int8 kind value the mask of the tile entries
+// that match it and the env's theme (bit i = entry i, so entry order is
+// bit order). Each thread copies its runs' four X channel rows into
+// shared memory asynchronously (cp.async, 16 bytes each), the next pass's
+// while the current one is worked on, in a ring of two buffers; it keeps
+// its run's 8 pixel masks in shared memory too. Only the thread that
+// copies a buffer slot, or writes a mask, reads it, so neither needs a
+// barrier.
+__global__ void __launch_bounds__(kStageSlots, 4)
 scene_kernel(const __nv_bfloat16* __restrict__ X,
              const int32_t* __restrict__ p_joint,
              const int32_t* __restrict__ theme,
              const __nv_bfloat16* __restrict__ tile_bank,
              const TileEntries entries, const StampGroups groups,
              __nv_bfloat16* __restrict__ out, int NPH, int obs) {
+  static_assert(kStageSlots == 256, "one kind mask per thread");
+  __shared__ SlotList slots;
+  __shared__ uint32_t kind_mask[256];
+  __shared__ uint32_t run_mask[kTileCols][kStageSlots];
+  __shared__ uint4 xbuf[2][4][kStageSlots];  // [pass & 1][channel][thread]
   const int e = blockIdx.x;
-  const int p = blockIdx.y * kThreads + threadIdx.x;
-  const int npix = obs * obs;
-  if (p >= npix) return;
-  const int r = p / obs;
-  const int c = p - r * obs;
-
-  // (1) kind field and background from the expanded field
-  const __nv_bfloat16* x = X + (size_t)e * 4 * npix + p;
-  const float G = ld(x);
-  float f[3] = {ld(x + npix), ld(x + 2 * npix), ld(x + 3 * npix)};
-
-  // (2) tile entries in order
+  const int t = threadIdx.x;
   const int ph = clampi(p_joint[e], 0, NPH - 1);
-  blend_tiles(f, G, theme[e],
-              tile_bank + (size_t)ph * entries.n * 4 * npix + p, entries,
-              npix);
-
-  // (3) stamp groups in painter order
-  for (int gi = 0; gi < groups.n; ++gi) {
-    blend_stamps(f, groups.g[gi], e, r, c, obs);
-  }
-
-  __nv_bfloat16* o = out + (size_t)e * 3 * npix + p;
+  const int th = theme[e];
+  const size_t npix = (size_t)obs * obs;
+  const __nv_bfloat16* tb = tile_bank + (size_t)ph * entries.n * 4 * npix;
+  const int passes = stamps::runs_passes(obs);
+  // (1) the run's kinds and background, four 16-byte copies per pass
+  const auto copy_x = [&](int pass) {
+    const Run u = stamps::run_of(pass, obs);
+    if (u.active) {
+      const __nv_bfloat16* src = X + (size_t)e * 4 * npix +
+                                 (size_t)u.R * obs + u.C;
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) o[ch * npix] = __float2bfloat16_rn(f[ch]);
+      for (int ch = 0; ch < 4; ++ch) {
+        __pipeline_memcpy_async(&xbuf[pass & 1][ch][t], src + ch * npix, 16);
+      }
+    }
+    __pipeline_commit();
+  };
+  copy_x(0);
+  kind_mask[t] = int8_kind_mask(entries, t, th);
+  __syncthreads();
+  int n = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const Run u = stamps::run_of(pass, obs);
+    const size_t run = (size_t)u.R * obs + u.C;
+    if (pass + 1 < passes) {
+      copy_x(pass + 1);
+    } else {
+      __pipeline_commit();  // an empty group: one wait rule for every pass
+    }
+    float f[kTileCols][3];
+    // (2) the matching tile entries in order, after the slot table is
+    // staged: an entry's 8 texels of one channel under the run are one
+    // 16-byte load
+    const auto tiles = [&] {
+      __pipeline_wait_prior(1);  // this pass's copies have landed
+      const uint4(&x)[4][kStageSlots] = xbuf[pass & 1];
+      uint32_t any = 0;
+      if (u.active) {
+        const uint4 kinds = x[0][t];
+#pragma unroll
+        for (int k = 0; k < kTileCols; ++k) {
+          const uint32_t m = entry_mask(stamps::lane_of(kinds, k), kind_mask,
+                                        entries, th);
+          run_mask[k][t] = m;
+          any |= m;
+        }
+      }
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const uint4 bg = x[ch + 1][t];
+#pragma unroll
+        for (int k = 0; k < kTileCols; ++k) f[k][ch] = stamps::lane_of(bg, k);
+      }
+      while (any) {
+        const int i = __ffs(any) - 1;
+        any &= any - 1;
+        const uint4* tp =
+            reinterpret_cast<const uint4*>(tb + (size_t)i * 4 * npix + run);
+        uint4 v[4];
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) v[ch] = __ldg(tp + ch * (npix / 8));
+#pragma unroll
+        for (int k = 0; k < kTileCols; ++k) {
+          if (!((run_mask[k][t] >> i) & 1u)) continue;
+          const float rgb[3] = {stamps::lane_of(v[0], k),
+                                stamps::lane_of(v[1], k),
+                                stamps::lane_of(v[2], k)};
+          blend(f[k], rgb, stamps::lane_of(v[3], k));
+        }
+      }
+    };
+    // (3) stamp groups in painter order
+    stamps::stamp_pass(f, u, groups, e, obs, pass, slots, n,
+                       stamps::BlendOp(), tiles);
+    if (u.active) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        *reinterpret_cast<uint4*>(out + ((size_t)e * 3 + ch) * npix + run) =
+            stamps::pack8(f, ch);
+      }
+    }
+  }
 }
 
 // The tile entries from the host arrays of a plain C entry point; false
@@ -350,10 +462,11 @@ extern "C" int scene_raw_launch(
 // Plain C entry point of B5 (bound with ctypes). Tensor pointers are device
 // pointers of contiguous tensors checked by the Python wrapper: X bf16
 // [N, 4, obs, obs], p_joint and theme int32 [N], tile_bank bf16
-// [NPH, NE, 4, obs, obs], out bf16 [N, 3, obs, obs]; entry_kind/entry_theme
-// (NE entries) and the per-group arrays (n_groups entries) are host
-// arrays. Returns 0, a cudaError_t, or -1 for a shape the kernel does not
-// take.
+// [NPH, NE, 4, obs, obs], out bf16 [N, 3, obs, obs]; obs a multiple of
+// 8, and X, tile_bank and out on 16-byte boundaries; entry_kind/
+// entry_theme (NE entries) and the per-group arrays (n_groups entries) are
+// host arrays. Returns 0, a cudaError_t, or -1 for a shape the kernel
+// does not take.
 extern "C" int scene_launch(
     const void* X, const void* p_joint, const void* theme,
     const void* tile_bank, const int* entry_kind, const int* entry_theme,
@@ -366,12 +479,14 @@ extern "C" int scene_launch(
   if (!stamps::make_groups(&groups, n_groups, banks, vars, scales, r0s, c0s,
                            Vs, Ps, Ks) ||
       !make_entries(&entries, NE, entry_kind, entry_theme) || N < 0 ||
-      obs <= 0 || NPH <= 0) {
+      obs <= 0 || obs % kTileCols != 0 || NPH <= 0 ||
+      reinterpret_cast<uintptr_t>(X) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(tile_bank) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return -1;
   }
   if (N == 0) return 0;
-  const dim3 grid_dim(N, (obs * obs + kThreads - 1) / kThreads);
-  scene_kernel<<<grid_dim, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  scene_kernel<<<N, kStageSlots, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(X),
       static_cast<const int32_t*>(p_joint),
       static_cast<const int32_t*>(theme),

@@ -1,19 +1,19 @@
 // Stamp placement shared by the port's Hopper kernels (scene_kernel.cu,
-// stamp_kernel.cu): the bf16 rounding helpers and the stamp-group
-// descriptors; B2, the Pallas painter-order stamp loop
-// (`_blend_stamps_ref` in procgen2_tpu/render/scene_kernel.py,
-// `_kernel_blend`'s body in procgen2_tpu/render/stamp_kernel.py), in two
-// forms: `blend_stamps`, one pixel at a time (B5), and the staged slot
-// list below (`stage_slots`, `blend_slots`, `stamp_pass`: B1 and B3); and
-// `sum_stamps`, the body of the Pallas stamp-sum kernel (`_kernel` in
-// procgen2_tpu/render/stamp_kernel.py, B4).
+// stamp_kernel.cu): the bf16 rounding helpers, the stamp-group
+// descriptors, and one staged slot-table path (`stage_slots`,
+// `for_slots`, `stamp_pass`) that all four kernels run, with a per-pixel
+// operation for each:
+//   * `BlendOp`: B2, the Pallas painter-order stamp blend
+//     (`_blend_stamps_ref` in procgen2_tpu/render/scene_kernel.py,
+//     `_kernel_blend`'s body in procgen2_tpu/render/stamp_kernel.py),
+//     over a 3-channel frame (B1, B3, B5);
+//   * `SumOp`: the body of the Pallas stamp-sum kernel (`_kernel` in
+//     procgen2_tpu/render/stamp_kernel.py), into a 4-channel frame (B4).
 //
 // Every multiply, subtract and add is computed in f32 and rounded to bf16
 // (RNE) on its own, with __fmul_rn/__fsub_rn/__fadd_rn so that nothing is
 // contracted into an FMA: that is the rounding of the plain torch versions
 // and of the JAX package's bf16 ops. Build with --fmad=false as well.
-// Both forms of B2 run the same per-pixel chain in the same order; they
-// differ only in how the slots reaching a pixel are found.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,88 +61,33 @@ __device__ __forceinline__ void blend(float f[3], const float rgb[3],
   }
 }
 
-// Calls fn(t, pp, s) for each slot of group g, in order, that covers
-// pixel (r, c) of env e: a slot with scale == 0 or var outside [0, V) is
-// skipped; bank[var] is placed at (r0, c0) clipped to [-P, obs]; t points
-// at the pixel's texel in channel 0 of bank[var] (channel ch at
-// t + ch * pp), s is the slot's scale. Inlined with its caller's fn, this
-// is one loop with no per-slot call or pointer test.
-template <typename Fn>
-__device__ __forceinline__ void for_each_stamp(const StampGroup& g, int e,
-                                               int r, int c, int obs,
-                                               Fn fn) {
-  const size_t row = (size_t)e * g.K;
-  const int pp = g.P * g.P;
-  for (int k = 0; k < g.K; ++k) {
-    const float s = g.scale[row + k];
-    const int v = g.var[row + k];
-    if (s == 0.0f || v < 0 || v >= g.V) continue;
-    const int dr = r - clampi(g.r0[row + k], -g.P, obs);
-    const int dc = c - clampi(g.c0[row + k], -g.P, obs);
-    if (dr < 0 || dr >= g.P || dc < 0 || dc >= g.P) continue;
-    fn(g.bank + (size_t)v * 4 * pp + dr * g.P + dc, pp, s);
-  }
-}
-
-// Painter-order stamps of one group over one pixel (r, c) of env e: under
-// each covering slot (`for_each_stamp`) contrib = bf16(texel * scale) and
-// frame = frame * (1 - a) + rgb.
-__device__ __forceinline__ void blend_stamps(float f[3],
-                                             const StampGroup& g, int e,
-                                             int r, int c, int obs) {
-  for_each_stamp(g, e, r, c, obs,
-                 [&](const __nv_bfloat16* t, int pp, float s) {
-                   float rgb[3];
-#pragma unroll
-                   for (int ch = 0; ch < 3; ++ch) {
-                     rgb[ch] = bf(__fmul_rn(ld(t + ch * pp), s));
-                   }
-                   blend(f, rgb, bf(__fmul_rn(ld(t + 3 * pp), s)));
-                 });
-}
-
-// Sum of the premultiplied stamps of one group at pixel (r, c) of env e
-// into f[4] (rgb * a, a): under each covering slot (`for_each_stamp`)
-// f[ch] = bf16(f[ch] + bf16(texel * scale)) for all four channels.
-__device__ __forceinline__ void sum_stamps(float f[4], const StampGroup& g,
-                                           int e, int r, int c, int obs) {
-  for_each_stamp(g, e, r, c, obs,
-                 [&](const __nv_bfloat16* t, int pp, float s) {
-#pragma unroll
-                   for (int ch = 0; ch < 4; ++ch) {
-                     const float contrib = bf(__fmul_rn(ld(t + ch * pp), s));
-                     f[ch] = bf(__fadd_rn(f[ch], contrib));
-                   }
-                 });
-}
-
 // ---------------------------------------------------------------------------
-// Staged slot tables (B1 and B3 since their redesign; B4 and B5 keep the
-// per-pixel loop above).
+// Staged slot tables.
 //
-// `for_each_stamp` decodes every slot of every group in every thread, for
-// every pixel: four dependent scalar loads, two clamps and a bounds test
-// per slot and pixel, though most slots are dead or far from the pixel.
+// Decoding every slot of every group in every thread, for every pixel
+// (four dependent scalar loads, two clamps and a bounds test per slot and
+// pixel, though most slots are dead or far from the pixel) is what the
+// kernels' first, one-thread-per-pixel designs spent their time on.
 // Instead, a block of kStageSlots threads owns one env frame. It decodes
 // the env's slot table once per staging pass, one slot per thread with
-// coalesced loads: the skip test above, the clip of r0/c0 to [-P, obs],
-// and a cull of slots that lie wholly off the frame (they cover no pixel).
-// The live slots are compacted in painter order (groups in order, slots in
-// order: a warp ballot and a prefix sum over the warps' counts) into a
-// shared-memory list. A table of more than kStageSlots slots is staged in
-// passes, in order; each thread keeps its pixels in registers across the
-// passes, so every pixel's chain keeps its order.
+// coalesced loads: the skip test (scale == 0, var outside [0, V)), the
+// clip of r0/c0 to [-P, obs], and a cull of slots that lie wholly off the
+// frame (they cover no pixel). The live slots are compacted in painter
+// order (groups in order, slots in order: a warp ballot and a prefix sum
+// over the warps' counts) into a shared-memory list. A table of more than
+// kStageSlots slots is staged in passes, in order; each thread keeps its
+// pixels in registers across the passes, so every pixel's chain keeps its
+// order.
 //
 // Each warp owns a region of kRegion x kRegion pixels and each of its
 // lanes a run of 8 adjacent pixels of one row (one 16-byte vector per
 // channel). A stamp then covers most lanes of the warps it touches, so
-// the lanes blend together instead of one lane blending while the others
+// the lanes work together instead of one lane working while the others
 // wait (laid along 4 full rows, a warp's 32 runs would have a P = 8
 // stamp on at most 8 of them; in a 16 x 16 region, on up to 16). A slot
 // is tested once against the warp's region (the same answer in every
 // lane: no divergence) and once against the lane's run; only a slot that
-// covers the run blends, over the pixels it covers. The per-pixel
-// arithmetic is `blend`'s: every op rounded on its own.
+// covers the run runs the per-pixel operation, over the pixels it covers.
 // ---------------------------------------------------------------------------
 
 constexpr int kStageSlots = 256;  // threads of a staging block = list size
@@ -200,8 +145,8 @@ __device__ __forceinline__ int slot_count(const StampGroups& gs) {
 // off the frame; the live ones are compacted in order by a warp ballot and
 // a prefix sum over the warps' counts. Every thread of the block calls it
 // (it holds two __syncthreads); the list is complete on return. A thread
-// reaches the first barrier only after its blends over the previous
-// list, so no list is overwritten while it is read; warp_live is read only
+// reaches the first barrier only after its work over the previous list,
+// so no list is overwritten while it is read; warp_live is read only
 // between the two barriers.
 __device__ __forceinline__ int stage_slots(const StampGroups& gs, int e,
                                            int j0, int obs, SlotList& L) {
@@ -248,13 +193,48 @@ __device__ __forceinline__ int stage_slots(const StampGroups& gs, int e,
   return total;
 }
 
+// B2's per-pixel blend: contrib = bf16(texel * scale) on all four
+// channels, frame = frame * (1 - a) + rgb. t points at the texel in
+// channel 0 (channel ch at t + ch * pp).
+struct BlendOp {
+  static constexpr int kChannels = 3;
+  __device__ __forceinline__ void operator()(float (&f)[3],
+                                             const __nv_bfloat16* t, int pp,
+                                             float s) const {
+    float rgb[3];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) rgb[ch] = bf(__fmul_rn(ld(t + ch * pp), s));
+    blend(f, rgb, bf(__fmul_rn(ld(t + 3 * pp), s)));
+  }
+};
+
+// B4's per-pixel sum: f[ch] = bf16(f[ch] + bf16(texel * scale)) on all
+// four channels (rgb * a, a).
+struct SumOp {
+  static constexpr int kChannels = 4;
+  __device__ __forceinline__ void operator()(float (&f)[4],
+                                             const __nv_bfloat16* t, int pp,
+                                             float s) const {
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      f[ch] = bf(__fadd_rn(f[ch], bf(__fmul_rn(ld(t + ch * pp), s))));
+    }
+  }
+};
+
+// Does nothing: the hook of `stamp_pass` for a kernel with no work
+// between the staging of its slot table and the slots.
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // The n listed slots, in order, over the lane's run u: a slot that misses
 // the warp's region, or the run, is skipped with one test each; under a
-// slot, contrib = bf16(texel * scale) and frame = frame * (1 - a) + rgb,
-// as `blend_stamps`.
-__device__ __forceinline__ void blend_slots(float (&f)[kTileCols][3],
-                                            const Run& u, const SlotList& L,
-                                            int n) {
+// slot, op(f[k], texel, pp, scale) at each pixel k of the run it covers.
+template <typename Op>
+__device__ __forceinline__ void for_slots(
+    float (&f)[kTileCols][Op::kChannels], const Run& u, const SlotList& L,
+    int n, const Op& op) {
   const int R0 = u.R & -kRegion;  // the warp's region
   const int C0 = u.C & -kRegion;
   for (int j = 0; j < n; ++j) {
@@ -276,12 +256,7 @@ __device__ __forceinline__ void blend_slots(float (&f)[kTileCols][3],
     for (int k = 0; k < kTileCols; ++k) {
       const int dc = u.C + k - sc;
       if (dc < 0 || dc >= P) continue;
-      float rgb[3];
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        rgb[ch] = bf(__fmul_rn(ld(t + dc + ch * pp), s));
-      }
-      blend(f[k], rgb, bf(__fmul_rn(ld(t + dc + 3 * pp), s)));
+      op(f[k], t + dc, pp, s);
     }
   }
 }
@@ -290,22 +265,27 @@ __device__ __forceinline__ void blend_slots(float (&f)[kTileCols][3],
 // block over the frame (run_of). A table of at most kStageSlots slots is
 // staged in pass 0 and its list, n long, serves the later passes; a
 // larger one is staged anew in every pass, kStageSlots slots at a time,
-// each part blended before the next is staged. Every thread of the block
-// calls it.
-__device__ __forceinline__ void stamp_pass(float (&f)[kTileCols][3],
-                                           const Run& u,
-                                           const StampGroups& gs, int e,
-                                           int obs, int pass, SlotList& L,
-                                           int& n) {
+// each part run before the next is staged. hook() runs after the first
+// (or only) staging of the pass and before the first slot: a kernel whose
+// frame needs work before the stamps (B5's tile blends) does it there, so
+// that its frame loads are in flight while the table is staged. Every
+// thread of the block calls it.
+template <typename Op, typename Hook = NoHook>
+__device__ __forceinline__ void stamp_pass(
+    float (&f)[kTileCols][Op::kChannels], const Run& u,
+    const StampGroups& gs, int e, int obs, int pass, SlotList& L, int& n,
+    const Op& op, const Hook& hook = Hook()) {
   const int nslots = slot_count(gs);
   if (nslots <= kStageSlots) {
     if (pass == 0) n = nslots > 0 ? stage_slots(gs, e, 0, obs, L) : 0;
-    blend_slots(f, u, L, n);
+    hook();
+    for_slots(f, u, L, n, op);
     return;
   }
   for (int j0 = 0; j0 < nslots; j0 += kStageSlots) {
     n = stage_slots(gs, e, j0, obs, L);
-    blend_slots(f, u, L, n);
+    if (j0 == 0) hook();
+    for_slots(f, u, L, n, op);
   }
 }
 
@@ -318,7 +298,8 @@ __device__ __forceinline__ float lane_of(const uint4& v, int k) {
 // 8 floats that are bf16 values (every frame value is: a bf16 load, 0 or
 // the result of `bf`) packed into a uint4 by keeping their high halves,
 // which is exact.
-__device__ __forceinline__ uint4 pack8(const float (&f)[kTileCols][3],
+template <int C>
+__device__ __forceinline__ uint4 pack8(const float (&f)[kTileCols][C],
                                        int ch) {
   uint32_t w[4];
 #pragma unroll

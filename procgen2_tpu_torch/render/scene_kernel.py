@@ -19,7 +19,9 @@ Semantics (shared by all), per env and output pixel (r, c):
         (y, x) lies outside the padded grid or bg_i outside the bank; jy
         and jx are clamped to [0, qp), the phase is jy * qp + jx;
       - scene: G = X[0, r, c] and rgb = X[1:4, r, c]; the phase is
-        p_joint clamped to [0, NPH);
+        p_joint clamped to [0, NPH). G is a bf16 value compared as f32,
+        G == float(entry_kind[i]): a fraction matches no entry, and -0.0
+        matches kind 0;
   * each tile entry i in order, where G == entry_kind[i] and entry_theme[i]
     is -1 or the env's theme: frame = frame * (1 - a) + rgb from
     tile_bank[phase, i];
@@ -237,6 +239,7 @@ def scene(X, p_joint, theme, tile_bank, entry_kind, entry_theme, groups,
     kinds, themes = _check_entries(entry_kind, entry_theme)
     check_groups(groups, N, dev)
     out = torch.empty((N, 3, obs, obs), dtype=_BF16, device=dev)
+    check_tiles(obs, ("X", X), ("tile_bank", tile_bank), ("out", out))
     _kernels()[0]["scene"](X, p_joint, theme, tile_bank, kinds, themes,
                            groups, out)
     scene.launches += 1

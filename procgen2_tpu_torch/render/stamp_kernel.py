@@ -30,7 +30,7 @@ import torch
 
 _BF16 = torch.bfloat16
 MAX_GROUPS = 4  # stamps::kMaxGroups in csrc/stamps.cuh
-TILE_COLS = 8  # stamps::kTileCols: B1 and B3 move frame rows 8 bf16 at a time
+TILE_COLS = 8  # stamps::kTileCols: the kernels move frame rows 8 bf16 at a time
 
 
 def blend_groups_reference(frame, groups):
@@ -205,7 +205,7 @@ def check(t, dtype, shape, device, name):
 
 
 def check_tiles(obs, *tensors):
-    """Raise ValueError unless B1's and B3's 16-byte row accesses fit: obs
+    """Raise ValueError unless the kernels' 16-byte row accesses fit: obs
     a multiple of TILE_COLS and every tensor in `tensors` (name, tensor)
     starting on a 16-byte boundary."""
     if obs % TILE_COLS:
@@ -254,6 +254,7 @@ def stamps(prem_bank, var, scale, r0, c0, obs):
     check_groups([group], var.shape[0], var.device)
     out = torch.empty((var.shape[0], 4, obs, obs), dtype=_BF16,
                       device=var.device)
+    check_tiles(obs, ("out", out))
     _kernels()[0]["stamps"](group, out)
     stamps.launches += 1
     return out[:, :3], out[:, 3:4]

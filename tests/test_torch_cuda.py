@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the scene kernels (B1, B5)
 and the stamp kernels (B3, B4) against their plain torch versions
-(bitwise, B1 and B3 also on the edge cases of their staged slot tables),
-the kernel wrappers' checks, threefry words and cos32/sin32 on the card,
+(bitwise, B1, B3 and B4 also on the edge cases of their staged slot
+tables, B5 on odd kinds), stamp groups off the kernel path, the kernel
+wrappers' checks, threefry words and cos32/sin32 on the card,
 and coinrun, bossfight, climber and caveflyer on the card against the
 same games on the CPU.
 
@@ -279,6 +280,112 @@ def test_stamp_sum_kernel_rejects_bad_inputs(dev):
         stk.stamps(bank, var, scale, r0[:4], c0, 64)
     with pytest.raises(ValueError):
         stk.stamps(bank.cpu(), var, scale, r0, c0, 64)
+
+
+@pytest.mark.parametrize("n", [1, 257])
+@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+def test_stamp_sum_kernel_edge_slots(dev, case, n):
+    """B4 on the edge cases of its staged slot table (chip_smoke.
+    edge_sum_group: K = 300 over more than one staging pass, 40 live slots
+    stacked on one pixel in one group, P = 40 at every offset): one
+    launch, bitwise equal to the plain version."""
+    group = chip_smoke.edge_sum_group(case, n, dev, seed=n)
+    before = stk.stamps.launches
+    got = stk.stamps(*group, 64)
+    torch.cuda.synchronize()
+    assert stk.stamps.launches == before + 1
+    for g, w in zip(got, stk.stamps_reference(*group, 64)):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("n", [1, 257])
+def test_field_scene_kernel_odd_kinds(dev, n):
+    """B5 on a kind field of fractions, -0.0, negative kinds, kinds beyond
+    int8 (with entries of their own), infinities and NaN
+    (chip_smoke.edge_field): bitwise equal to the plain version."""
+    args = chip_smoke.edge_field(n, dev, seed=n)
+    before = sk.scene.launches
+    got = sk.scene(*args)
+    torch.cuda.synchronize()
+    assert sk.scene.launches == before + 1
+    assert torch.equal(_bits(got), _bits(sk.scene_reference(*args)))
+
+
+def _field_at(obs, n, dev, seed):
+    """scene inputs at frame size obs: kinds 0-5, 2.5 and 200 (a fraction
+    and a kind beyond int8), the entries of chip_smoke.random_field plus
+    kind 200, and a stamp group of K = 300 (more than one staging
+    pass)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    nph, kinds, themes = 4, (1, 2, 3, 4, 5, 200), (-1, -1, 0, 1, -1, -1)
+    palette = torch.tensor([0, 1, 2, 3, 4, 5, 2.5, 200], device=dev)
+    X = torch.cat([palette[ri(0, 8, (n, 1, obs, obs)).long()],
+                   ri(0, 256, (n, 3, obs, obs)).float()],
+                  dim=1).to(torch.bfloat16)
+    a = torch.rand((nph, len(kinds), 1, obs, obs), generator=g, device=dev)
+    tile_bank = torch.cat([torch.rand((nph, len(kinds), 3, obs, obs),
+                                      generator=g, device=dev) * 255 * a, a],
+                          dim=2).to(torch.bfloat16)
+    groups = [chip_smoke.random_group(g, n, dev, 6, 8, 300, obs)]
+    return (X, ri(0, nph, (n,)), ri(0, 2, (n,)), tile_bank, kinds, themes,
+            groups, obs)
+
+
+@pytest.mark.parametrize("obs", [8, 24, 72, 136])
+def test_sum_and_field_kernels_at_other_frame_sizes(dev, obs):
+    """B4 and B5 at frame sizes other than the games' 64, as
+    test_tiled_kernels_at_other_frame_sizes holds B1 and B3: warp regions
+    cut by the frame's edge, more regions than one pass of the block's
+    warps, a 300-slot table staged anew in every pass; bitwise equal to
+    the plain versions."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(obs)
+    group = chip_smoke.random_group(g, 33, dev, 6, 8, 300, obs)
+    for a, b in zip(stk.stamps(*group, obs),
+                    stk.stamps_reference(*group, obs)):
+        assert torch.equal(_bits(a), _bits(b))
+    big = chip_smoke.random_group(g, 33, dev, 3, 40, 7, obs)
+    for a, b in zip(stk.stamps(*big, obs), stk.stamps_reference(*big, obs)):
+        assert torch.equal(_bits(a), _bits(b))
+    args = _field_at(obs, 33, dev, obs + 1)
+    assert torch.equal(_bits(sk.scene(*args)),
+                       _bits(sk.scene_reference(*args)))
+
+
+def test_sum_and_field_kernels_reject_shapes_they_do_not_take(dev):
+    """B4 and B5 move frame rows 8 bf16 at a time: an obs that is not a
+    multiple of 8, and (B5) an X or tile bank off a 16-byte boundary,
+    raise ValueError; nothing is launched or sent to the plain version."""
+    group = chip_smoke.random_sum_groups(8, dev, 5)[0]
+    before = stk.stamps.launches
+    for obs in (60, 4, 65):
+        with pytest.raises(ValueError):
+            stk.stamps(*group, obs)
+    assert stk.stamps.launches == before
+    X, p, theme, tb, kinds, themes, groups, obs = chip_smoke.random_field(
+        8, dev, 6)
+    before = sk.scene.launches
+    with pytest.raises(ValueError):
+        sk.scene(_misaligned(X), p, theme, tb, kinds, themes, groups, obs)
+    with pytest.raises(ValueError):
+        sk.scene(X, p, theme, _misaligned(tb), kinds, themes, groups, obs)
+    with pytest.raises(ValueError):
+        sk.scene(X[..., :60, :60].contiguous(), p, theme,
+                 tb[..., :60, :60].contiguous(), kinds, themes, groups, 60)
+    assert sk.scene.launches == before
+
+
+def test_off_kernel_stamp_groups_on_card(dev):
+    """Chaser's (P, K) through stamps_from_pixel_bank and composite_stamps
+    on the card: no kernel launched, bitwise equal to the CPU
+    (chip_smoke.off_kernel_groups raises otherwise)."""
+    chip_smoke.off_kernel_groups(64, dev)
 
 
 @pytest.mark.parametrize("n,seed", [(1, 0), (257, 1), (4096, 2)])

@@ -7,7 +7,9 @@ bitwise:
   * B5, `scene_reference`: against the Pallas kernel `scene_tpu` run in
     interpret mode and against the JAX package's `scene_reference` on
     random expanded fields shaped like tests/test_scene_kernel.py's, and
-    its joint phase clamped into the tile bank.
+    its joint phase clamped into the tile bank; against `scene_tpu` on a
+    kind field of fractions, -0.0, negative kinds, kinds beyond int8,
+    infinities and NaN (chip_smoke.edge_field).
 
 The CUDA kernel itself cannot run here; tests/test_torch_cuda.py and
 chip_smoke.py hold it against this plain version on the card."""
@@ -343,3 +345,55 @@ def test_edge_entries_cover_every_theme():
     assert kinds.index(1) < len(kinds) - 4  # themed kind 1 first
     theme = chip_smoke.edge_scene("stacked", 64, "cpu")[6]
     assert set(theme.tolist()) == set(range(-1, chip_smoke.EDGE_THEMES + 1))
+
+
+def test_scene_reference_matches_pallas_on_odd_kinds():
+    """The card tests' yardstick for B5's kind lookup (chip_smoke.
+    edge_field: kinds that are fractions, -0.0, negative, beyond int8,
+    infinite or NaN; themed and unthemed entries, three of kinds beyond
+    int8), at 4 envs: the plain version bitwise equal to the Pallas kernel
+    in interpret mode. The joint phases are clamped into the tile bank
+    first: the Pallas kernel does not clamp a phase of -1 (an index out
+    of its block), where the port and the JAX package's mirror clamp
+    (test_scene_clamps_the_joint_phase)."""
+    X, p, theme, tb, kinds, themes, groups, obs = chip_smoke.edge_field(
+        4, "cpu", seed=6)
+    p = p.clamp(0, tb.shape[0] - 1)
+    want = jsk.scene_tpu(
+        *(_torch_to_jax(a) for a in (X, p, theme, tb)), kinds, themes,
+        [tuple(_torch_to_jax(x) for x in g) for g in groups], obs,
+        interpret=True)
+    got = tsk.scene(X, p, theme, tb, kinds, themes, groups, obs)
+    np.testing.assert_array_equal(
+        np.asarray(want, np.float32).view(np.int32),
+        got.float().numpy().view(np.int32))
+
+
+def test_edge_field_reaches_every_kind_path():
+    """What chip_smoke.edge_field promises B5's kind lookup, in every one
+    of 4 envs: integer kinds in int8 (the table; -0.0 among them, and a
+    negative kind with an entry), fractions, infinities and a NaN (the
+    comparison with every entry, matching none), and integer kinds beyond
+    int8 matching their entries; and a tile blend of a themed entry (env
+    theme in range) and of an unthemed one, over 64 envs every env theme
+    in [-1, EDGE_THEMES]."""
+    X, p, theme, tb, kinds, themes, groups, obs = chip_smoke.edge_field(
+        4, "cpu")
+    assert len(kinds) <= tsk._MAX_ENTRIES
+    assert set(chip_smoke.BIG_KINDS) <= set(kinds)
+    assert all(not -128 <= k <= 127 for k in chip_smoke.BIG_KINDS)
+    G = X[:, 0].float().reshape(4, -1)
+    bits = G.view(torch.int32)
+    table = (G == G.round()) & (G.abs() <= 128) & (G >= -128) & (G <= 127)
+    for e in range(4):
+        g, b, t = G[e], bits[e], table[e]
+        assert (b == -2 ** 31).any()  # -0.0
+        assert (t & (g == -5)).any() and (t & (g == 1)).any()
+        assert ((g != g.round()) & g.isfinite()).any()  # fractions
+        assert g.isinf().any() and g.isnan().any()
+        for k in chip_smoke.BIG_KINDS:
+            assert (g == k).any()
+    all_theme = chip_smoke.edge_field(64, "cpu")[2]
+    assert set(all_theme.tolist()) == set(
+        range(-1, chip_smoke.EDGE_THEMES + 1))
+    assert ((theme >= 0) & (theme < chip_smoke.EDGE_THEMES)).any()

@@ -1,6 +1,8 @@
 """The plain torch versions of the stamp kernels
 (procgen2_tpu_torch/render/stamp_kernel.py) against the JAX package's
-Pallas kernels run in interpret mode, bitwise:
+Pallas kernels run in interpret mode, bitwise, and the port's stamp
+dispatch (procgen2_tpu_torch/render/compositor.py) against the JAX
+package's:
   * B3, `composite_reference` against `stamp_kernel.composite_tpu`:
     bossfight's four stamp-group shapes and a random case with
     out-of-range variants, scale 0, fractional scales, stamps off every
@@ -9,10 +11,13 @@ Pallas kernels run in interpret mode, bitwise:
     the JAX function on its kernel path;
   * B4, `stamps_reference` against `stamp_kernel.stamps_tpu`, at every
     patch size of tests/test_stamp_kernel.py, with the same kinds of
-    random groups; and `compositor.stamps_from_pixel_bank` against the JAX
-    function on the CPU, which sums by matmul in another order: there the
-    support must be the same and the values within that test's
-    tolerance (atol 4.0, rtol 0.02 on rgb; atol 1/32 on alpha).
+    random groups, and on the edge cases of the kernels' staged slot
+    tables (more than 256 slots among them);
+  * the dispatch: `compositor.stamp_kernel_ok` equals the JAX package's
+    `_stamp_kernel_ok` as it evaluates on the TPU; off the kernel path,
+    `stamps_from_pixel_bank` and `composite_stamps` equal the JAX
+    functions' matmul path on the CPU, and on it, the JAX functions with
+    the Pallas kernels in interpret mode.
 
 The CUDA kernel itself cannot run here; tests/test_torch_cuda.py and
 chip_smoke.py hold it against this plain version on the card."""
@@ -209,37 +214,126 @@ def test_stamps_reference_on_climber_group_matches_pallas():
     np.testing.assert_array_equal(bits(want_a), bits(got_a))
 
 
-@pytest.mark.parametrize("P", [8, 12, 20])
-def test_stamps_from_pixel_bank_matches_jax(P):
-    """compositor.stamps_from_pixel_bank (premultiplied bank, alives and
-    alpha folded into the slot scale) against the JAX function on the CPU
-    (its matmul path): the same covered pixels, and values within
-    tests/test_stamp_kernel.py's tolerance, which allows for the matmul's
-    other summation order over overlapping stamps."""
-    rng = np.random.default_rng(30 + P)
-    V, K = 5, 7
+def _jax_kernels_in_interpret_mode(monkeypatch):
+    """The JAX compositor on its TPU kernel path, with the Pallas kernels
+    run in interpret mode."""
+    monkeypatch.setattr(jC, "_use_stamp_kernel", lambda: True)
+    for name in ("composite_tpu", "stamps_tpu"):
+        orig = getattr(jsk, name)
+        monkeypatch.setattr(
+            jsk, name,
+            lambda *a, _orig=orig, **k: _orig(*a, **{**k, "interpret": True}))
+
+
+def _pixel_bank_case(rng, P, K, V=5):
+    """A u8 bank [V, 4, P, P] with alpha > 0 everywhere, and var in
+    [-1, V], r0/c0 in [-P - 2, OBS + 2], alives and alphas 1 and 0.7 for N
+    envs; slot 1 overlaps slot 0."""
     pbank = rng.integers(0, 256, (V, 4, P, P)).astype(np.uint8)
-    pbank[:, 3] = rng.integers(64, 256, (V, P, P))  # alpha > 0 everywhere
+    pbank[:, 3] = rng.integers(64, 256, (V, P, P))
     var = rng.integers(-1, V + 1, (N, K)).astype(np.int32)
     r0 = rng.integers(-P - 2, OBS + 3, (N, K)).astype(np.int32)
     c0 = rng.integers(-P - 2, OBS + 3, (N, K)).astype(np.int32)
     r0[:, 1], c0[:, 1] = r0[:, 0] + 2, c0[:, 0] + 2  # overlaps
     alives = rng.random((N, K)) < 0.7
     alpha = rng.choice(np.float32([1.0, 0.7]), (N, K))
-    want_rgb, want_a = jC.stamps_from_pixel_bank(
+    return pbank, var, r0, c0, alives, alpha
+
+
+def _both_stamps(pbank, var, r0, c0, alives, alpha):
+    """stamps_from_pixel_bank of the JAX package and of the port."""
+    want = jC.stamps_from_pixel_bank(
         jnp.asarray(pbank), jnp.asarray(var), jnp.asarray(r0),
         jnp.asarray(c0), alives=jnp.asarray(alives), alpha=jnp.asarray(alpha))
-    got_rgb, got_a = tC.stamps_from_pixel_bank(
+    got = tC.stamps_from_pixel_bank(
         tC._premultiply_bank(pbank), torch.from_numpy(var),
         torch.from_numpy(r0), torch.from_numpy(c0),
         alives=torch.from_numpy(alives), alpha=torch.from_numpy(alpha))
-    np.testing.assert_array_equal(np.asarray(want_a) != 0,
-                                  got_a.float().numpy() != 0)
+    return want, got
+
+
+@pytest.mark.parametrize("P", [8, 12, 20])
+def test_stamps_from_pixel_bank_matches_jax(P, monkeypatch):
+    """compositor.stamps_from_pixel_bank (premultiplied bank, alives and
+    alpha folded in) against the JAX function, bitwise. K = 7: P = 8 is
+    off the kernel path (K * P < 96), compared with the JAX function on
+    the CPU (its matmul path); P = 12 and 20 are on it, compared with the
+    JAX function on its TPU kernel path, the Pallas kernel in interpret
+    mode."""
+    K = 7
+    assert tC.stamp_kernel_ok(P, K) == (P != 8)
+    if tC.stamp_kernel_ok(P, K):
+        _jax_kernels_in_interpret_mode(monkeypatch)
+    rng = np.random.default_rng(30 + P)
+    (want_rgb, want_a), (got_rgb, got_a) = _both_stamps(
+        *_pixel_bank_case(rng, P, K))
     assert (got_a.float() != 0).any()
-    np.testing.assert_allclose(np.float32(want_rgb), got_rgb.float().numpy(),
-                               atol=4.0, rtol=0.02)
-    np.testing.assert_allclose(np.float32(want_a), got_a.float().numpy(),
-                               atol=1 / 32, rtol=0.02)
+    np.testing.assert_array_equal(bits(want_rgb), bits(got_rgb))
+    np.testing.assert_array_equal(bits(want_a), bits(got_a))
+
+
+def test_stamp_dispatch_matches_jax(monkeypatch):
+    """compositor.stamp_kernel_ok equals the JAX package's
+    _stamp_kernel_ok on the TPU (_use_stamp_kernel true) for P in 1..48
+    and K in 1..300; both paths occur at every P up to 11."""
+    monkeypatch.setattr(jC, "_use_stamp_kernel", lambda: True)
+    for P in range(1, 49):
+        got = [tC.stamp_kernel_ok(P, K) for K in range(1, 301)]
+        assert got == [jC._stamp_kernel_ok(P, K) for K in range(1, 301)], P
+        if P < 12:
+            assert any(got) and not all(got), P
+
+
+OFF_KERNEL = ((8, 6), (7, 6), (6, 6))  # chaser's stamp group per mode
+
+
+@pytest.mark.parametrize("P,K", OFF_KERNEL)
+def test_off_kernel_groups_match_jax(P, K):
+    """Off the kernel path (chaser's (P, K)), stamps_from_pixel_bank and
+    composite_stamps bitwise equal to the JAX functions on the CPU (their
+    matmul path: f32 sums of the bf16 stamps rounded once, one blend),
+    with stamps overlapping within a 6-pixel square and alphas 1, 0.7 and
+    0.3."""
+    assert not tC.stamp_kernel_ok(P, K)
+    rng = np.random.default_rng(40 + P)
+    pbank, var, r0, c0, alives, _ = _pixel_bank_case(rng, P, K)
+    r0 = (r0[:, :1] + rng.integers(0, 6, (N, K))).astype(np.int32)
+    c0 = (c0[:, :1] + rng.integers(0, 6, (N, K))).astype(np.int32)
+    r0[:2, 0], c0[:2, 0] = 30, 30  # two envs with a stack on the frame
+    alpha = rng.choice(np.float32([1.0, 0.7, 0.3]), (N, K))
+    (want_rgb, want_a), (got_rgb, got_a) = _both_stamps(
+        pbank, var, r0, c0, alives, alpha)
+    assert (got_a.float() != 0).any()
+    np.testing.assert_array_equal(bits(want_rgb), bits(got_rgb))
+    np.testing.assert_array_equal(bits(want_a), bits(got_a))
+    img = random_img(rng)
+    want = jC.composite_stamps(_to_jax(img), pbank, jnp.asarray(var),
+                               jnp.asarray(r0), jnp.asarray(c0),
+                               alives=jnp.asarray(alives),
+                               alpha=jnp.asarray(alpha))
+    got = tC.composite_stamps(img, tC._premultiply_bank(pbank),
+                              torch.from_numpy(var), torch.from_numpy(r0),
+                              torch.from_numpy(c0),
+                              alives=torch.from_numpy(alives),
+                              alpha=torch.from_numpy(alpha))
+    np.testing.assert_array_equal(bits(want), bits(got))
+    assert not torch.equal(got, img)
+
+
+def test_off_kernel_groups_launch_nothing(monkeypatch):
+    """Off the kernel path the stamp functions are plain torch ops: the
+    stamp kernels' wrappers are not called."""
+    rng = np.random.default_rng(13)
+    pbank, var, r0, c0, alives, alpha = _pixel_bank_case(rng, 8, 6)
+    calls = []
+    monkeypatch.setattr(tsk, "stamps", lambda *a: calls.append("stamps"))
+    monkeypatch.setattr(tsk, "composite",
+                        lambda *a: calls.append("composite"))
+    args = (tC._premultiply_bank(pbank), torch.from_numpy(var),
+            torch.from_numpy(r0), torch.from_numpy(c0))
+    tC.stamps_from_pixel_bank(*args)
+    tC.composite_stamps(random_img(rng), *args)
+    assert calls == []
 
 
 def test_stamps_cpu_tensors_take_the_plain_path():
@@ -280,6 +374,20 @@ def test_reference_matches_pallas_on_edge_slots(case):
     got = tsk.composite_reference(img, groups)
     np.testing.assert_array_equal(bits(want), bits(got))
     assert not torch.equal(got, img)  # the stamps drew something
+
+
+@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+def test_stamps_reference_matches_pallas_on_edge_slots(case):
+    """The card tests' yardstick for B4 on the edge cases of its staged
+    slot table (chip_smoke.edge_sum_group: K = 300, 40 live slots stacked
+    on one pixel in one group between dead ones, P = 40 at every offset),
+    at 4 envs: the plain version bitwise equal to the Pallas kernel."""
+    group = chip_smoke.edge_sum_group(case, 4, "cpu", seed=7)
+    want_rgb, want_a = pallas_stamps(group)
+    got_rgb, got_a = tsk.stamps_reference(*group, OBS)
+    np.testing.assert_array_equal(bits(want_rgb), bits(got_rgb))
+    np.testing.assert_array_equal(bits(want_a), bits(got_a))
+    assert got_a.any()  # the stamps summed something
 
 
 def _live_cover(group, r, c, obs=OBS):
@@ -327,10 +435,38 @@ def test_edge_groups_reach_the_staging_edges():
     assert (scale != 0).all()
 
 
+def test_edge_sum_groups_reach_the_staging_edges():
+    """B4's edge groups keep their promises in one group: K = 300 with
+    live slots across the 256-slot pass boundary; 40 live slots on pixel
+    (29, 35), the odd slots between them dead everywhere; P = 40 at every
+    offset."""
+    n = 4
+    k300 = chip_smoke.edge_sum_group("k300", n, "cpu")
+    assert k300[1].shape == (n, 300)
+    assert _live_cover(k300, 23, 33)[:, 250:262].all()  # across slot 256
+
+    stacked = chip_smoke.edge_sum_group("stacked", n, "cpu")
+    assert stacked[1].shape == (n, 80)
+    cover = _live_cover(stacked, 29, 35)
+    assert (cover.sum(1) == 40).all()
+    assert cover[:, 0::2].all() and not cover[:, 1::2].any()
+    any_pixel = torch.zeros_like(cover[:, 1::2])
+    for r in range(0, OBS, 4):
+        for c in range(0, OBS, 4):
+            any_pixel |= _live_cover(stacked, r, c)[:, 1::2]
+    assert not any_pixel.any()
+
+    p40 = chip_smoke.edge_sum_group("p40", n, "cpu")
+    assert p40[0].shape[-1] == 40 and (p40[2] != 0).all()
+    for e in range(n):
+        assert set(p40[3][e].tolist()) == set(range(-41, OBS + 2))
+        assert set(p40[4][e].tolist()) == set(range(-41, OBS + 2))
+
+
 def test_check_tiles_takes_rows_of_8_on_16_byte_boundaries():
-    """The wrappers of B1 and B3 refuse, on the card, an obs that is not a
+    """The kernels' wrappers refuse, on the card, an obs that is not a
     multiple of 8 and a tensor that does not start on a 16-byte boundary:
-    the redesigned kernels read and write frame rows 8 bf16 at a time."""
+    the kernels read and write frame rows 8 bf16 at a time."""
     x = torch.zeros(64, dtype=torch.bfloat16)
     tsk.check_tiles(64, ("img", x))
     tsk.check_tiles(8)
