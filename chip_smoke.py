@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the port's
 kernels from this checkout, holds each against its plain torch version,
-drives the main paths of coinrun, bossfight, climber and caveflyer at
-full width, drives the render entry points of the stamp-sum and
+drives the main paths of coinrun, bossfight, climber, caveflyer and
+jumper at full width, drives the render entry points of the stamp-sum and
 expanded-field scene kernels on climber's real inputs, and checks the
 results.
 
@@ -83,7 +83,20 @@ Phases (any failure raises, so the exit code is non-zero and the final
      real inputs (four stamp groups, the smoke at fractional scales) and
      on a hard-mode render (D = 40, 107 slots; 256 levels, reset, 2 steps);
  12. where the time goes (caveflyer), as in 5;
- 13. prints the kernels' JSON line (with each kernel's least possible
+ 13. jumper main path: make("jumper") -> generate_bank(1024) (the maze
+     generator, spikes and wall breakup) -> reset(4096) -> lane 0's agent
+     on its carrot (+10) and the first other lane whose level has a spike
+     on that spike (death, 0) -> 8 steps writing obs into the uint8
+     buffer; the launches of both kernels of its render (B1, then B3 for
+     the compass needle) are counted, both lanes' termination and restart
+     on step 0, shapes, dtypes, rewards and obs are checked; the first 8
+     envs are re-run on the CPU and must match exactly at every step; B1
+     is then held against its plain version on jumper's real scene inputs
+     (the dust at fractional scales) and B3 on its needle (P = 32, K = 1)
+     over the compass-blended frame, bitwise, each timed with its bound;
+ 14. where the time goes (jumper), as in 5, with the compass blend and
+     the needle's stamp kernel as parts of their own;
+ 15. prints the kernels' JSON line (with each kernel's least possible
      time on this card, `bound_ms`), then the `ok` line last.
 """
 from __future__ import annotations
@@ -103,7 +116,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 import procgen2_tpu_torch as pt  # noqa: E402
 from procgen2_tpu_torch import random as prng  # noqa: E402
 from procgen2_tpu_torch.games import (bossfight, caveflyer, climber,  # noqa: E402
-                                     coinrun)
+                                     coinrun, jumper)
 from procgen2_tpu_torch.render import compositor  # noqa: E402
 from procgen2_tpu_torch.render import scene_kernel, stamp_kernel  # noqa: E402
 from procgen2_tpu_torch.utils import (bank_gather, tree_map,  # noqa: E402
@@ -820,6 +833,32 @@ def place_caveflyer_lanes(gs, n):
     return dataclasses.replace(gs, pos=pos, vel=vel), lanes
 
 
+def place_jumper_lanes(gs, n):
+    """Of the first n lanes of a jumper State: lane 0's agent on its carrot
+    (half a unit below the goal's centre, so its rect lies in the goal
+    cell: +10), and the first other lane whose level has a spike, on that
+    spike ((x + 0.5, ry + 0.9) for the spike at render cell (ry, x): its
+    rect overlaps the spike's whatever the first action; death, 0), a
+    spike whose cell above is not the goal's. Velocities are zeroed. The
+    lanes chosen depend only on the first n lanes. Raises ValueError if
+    none of lanes 1..n-1 has such a spike. Returns (state, lanes)."""
+    lv = gs.level
+    pos, vel = gs.pos.clone(), gs.vel.clone()
+    pos[0] = lv.goal_pos[0] + torch.tensor([0.0, 0.5], device=pos.device)
+    spikes = lv.spike_grid[:n].cpu()
+    goal = lv.goal_pos[:n].cpu()
+    found = [(i, ry, x) for i in range(1, n)
+             for ry, x in torch.nonzero(spikes[i]).tolist()
+             if (x + 0.5, ry - 0.5) != tuple(goal[i].tolist())]
+    if not found:
+        raise ValueError(f"no spike in jumper lanes 1..{n - 1}")
+    lane, ry, x = found[0]
+    pos[lane] = torch.tensor([x + 0.5, ry + 0.9], device=pos.device)
+    lanes = [0, lane]
+    vel[lanes] = 0.0
+    return dataclasses.replace(gs, pos=pos, vel=vel), lanes
+
+
 def wall_ms(fn, iters=5):
     """Mean host wall time of fn() in ms, device synchronised, after one
     warm-up call."""
@@ -910,12 +949,13 @@ def make_bank(env):
     return bank
 
 
-def drive(env, bank, actions, obs_buf, place, counter):
+def drive(env, bank, actions, obs_buf, place, *counters):
     """The main path, twice: reset(NUM_ENVS), `place` the special lanes,
-    T steps writing obs into `obs_buf`. The first run warms up; `counter`
-    (a kernel wrapper) is set to 0 just before the second and read just
-    after. Returns ([state after each step], [(reward, done)], lanes,
-    launches)."""
+    T steps writing obs into `obs_buf`. The first run warms up; the
+    `counters` (kernel wrappers) are set to 0 just before the second and
+    read just after, and each must have launched at least T + 1 times.
+    Returns ([state after each step], [(reward, done)], lanes,
+    [launches of each counter])."""
     def run():
         state, _ = env.reset(bank, pt.random.key(1, env.device), NUM_ENVS)
         gs, lanes = place(state.game)
@@ -933,15 +973,19 @@ def drive(env, bank, actions, obs_buf, place, counter):
 
     run()
     torch.cuda.synchronize()
-    counter.launches = 0
+    for counter in counters:
+        counter.launches = 0
     states, out, lanes, step_s = run()
-    launches = counter.launches
+    launches = [counter.launches for counter in counters]
     log(f"{env.game.NAME} main path: {T} steps x {NUM_ENVS} envs in "
         f"{step_s:.4f} s -> {T * NUM_ENVS / step_s:.1f} env-steps/s (obs "
-        f"written to the buffer); kernel launches {launches}")
-    if launches < T + 1:
-        raise AssertionError(f"the {env.game.NAME} main path launched its "
-                             f"kernel {launches} times, expected >= {T + 1}")
+        f"written to the buffer); kernel launches "
+        f"{dict(zip((c.__name__ for c in counters), launches))}")
+    for counter, n in zip(counters, launches):
+        if n < T + 1:
+            raise AssertionError(f"the {env.game.NAME} main path launched "
+                                 f"{counter.__name__} {n} times, expected "
+                                 f">= {T + 1}")
     return states, out, lanes, launches
 
 
@@ -1014,8 +1058,8 @@ def coinrun_path(actions):
     def place(gs):
         return place_on_hazards(gs, CPU_ENVS)
 
-    states, out, lanes, launches = drive(env, bank, actions, obs_buf, place,
-                                         scene_kernel.scene_raw)
+    states, out, lanes, [launches] = drive(env, bank, actions, obs_buf,
+                                           place, scene_kernel.scene_raw)
     rewards, dones = check_outputs(obs_buf, out, (0.0, 10.0))
     # the coin lane ends its episode on step 0 and restarts from the bank
     if not (bool(dones[0, 0]) and float(rewards[0, 0]) == 10.0
@@ -1039,7 +1083,7 @@ def coinrun_path(actions):
     bound_ms, bound_by = scene_bound(inputs)
     log(f"scene kernel vs plain, coinrun inputs N={NUM_ENVS}: bitwise equal; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bound_by})")
+        f"ms ({bound_by}); blend operations {scene_work(inputs)[1]}")
 
     img = scene_kernel.scene_raw(*inputs)
     breakdown(env, bank, state, actions[-1], obs_buf, [
@@ -1065,9 +1109,9 @@ def bossfight_path(actions):
     obs_buf = torch.empty((T, NUM_ENVS, 64, 64, 3), dtype=torch.uint8,
                           device=env.device)
 
-    states, out, lanes, launches = drive(env, bank, actions, obs_buf,
-                                         place_boss_deaths,
-                                         stamp_kernel.composite)
+    states, out, lanes, [launches] = drive(env, bank, actions, obs_buf,
+                                           place_boss_deaths,
+                                           stamp_kernel.composite)
     rewards, dones = check_outputs(obs_buf, out, (-10.0, 0.0, 10.0))
     # both lanes end their episodes on step 0 and restart from the bank
     g0 = states[0].game
@@ -1137,8 +1181,8 @@ def climber_path(actions):
     def place(gs):
         return place_climber_lanes(gs, CPU_ENVS)
 
-    states, out, lanes, launches = drive(env, bank, actions, obs_buf, place,
-                                         scene_kernel.scene_raw)
+    states, out, lanes, [launches] = drive(env, bank, actions, obs_buf,
+                                           place, scene_kernel.scene_raw)
     if launches != T + 1:
         raise AssertionError(f"climber's main path launched the scene kernel "
                              f"{launches} times, expected {T + 1}")
@@ -1262,8 +1306,8 @@ def caveflyer_path(actions):
     def place(gs):
         return place_caveflyer_lanes(gs, CPU_ENVS)
 
-    states, out, lanes, launches = drive(env, bank, actions, obs_buf, place,
-                                         scene_kernel.scene_raw)
+    states, out, lanes, [launches] = drive(env, bank, actions, obs_buf,
+                                           place, scene_kernel.scene_raw)
     if launches != T + 1:
         raise AssertionError(f"caveflyer's main path launched the scene "
                              f"kernel {launches} times, expected {T + 1}")
@@ -1335,6 +1379,83 @@ def caveflyer_path(actions):
     return launches, max(err, herr)
 
 
+def jumper_path(actions):
+    """Jumper's main path, its checks, the CPU re-run, B1 and B3 against
+    their plain versions on jumper's real inputs (the dust at fractional
+    scales; the needle, one P = 32 stamp over the blended frame), and the
+    breakdown. Returns B1's and B3's main-path launches and errors."""
+    env = pt.make("jumper")
+    bank = make_bank(env)
+    obs_buf = torch.empty((T, NUM_ENVS, 64, 64, 3), dtype=torch.uint8,
+                          device=env.device)
+
+    def place(gs):
+        return place_jumper_lanes(gs, CPU_ENVS)
+
+    states, out, lanes, (b1_launches, b3_launches) = drive(
+        env, bank, actions, obs_buf, place, scene_kernel.scene_raw,
+        stamp_kernel.composite)
+    rewards, dones = check_outputs(obs_buf, out, (0.0, 10.0))
+    g0 = states[0].game
+    for lane, want in zip(lanes, (10.0, 0.0)):
+        if not (bool(dones[0, lane]) and float(rewards[0, lane]) == want
+                and int(g0.t[lane]) == 0 and int(states[0].ep_length[lane]) == 0
+                and not bool((g0.part_life[lane] > 0).any())):
+            raise AssertionError(f"jumper lane {lane} did not end its "
+                                 f"episode with {want} and restart on step 0")
+    log(f"jumper checks: obs {tuple(obs_buf.shape)} uint8 mean "
+        f"{float(obs_buf.float().mean()):.3f}; rewards of 10: "
+        f"{int((rewards == 10).sum())}; terminations: {int(dones.sum())}; "
+        f"carrot lane {lanes[0]} ended with 10, spike lane {lanes[1]} with 0, "
+        f"both restarted on step 0")
+    cpu_rerun("jumper", bank, actions, obs_buf, states, out, place, lanes)
+    log(f"jumper CPU re-run of the first {CPU_ENVS} envs: bank, states, "
+        f"rewards, terminations and obs identical at every step "
+        f"({int(dones[:, :CPU_ENVS].sum())} auto-resets)")
+
+    cfg, gs = env.cfg, states[-1].game
+    inputs = jumper._scene_inputs(cfg, gs)
+    dust = inputs[12][0][2]
+    frac = int(((dust > 0) & (dust < 1)).sum())
+    if frac == 0:
+        raise AssertionError("no dust stamp at a fractional scale")
+    err1, ms1, plain1 = scene_vs_plain(inputs, 20)
+    b1, by1 = scene_bound(inputs)
+    log(f"scene kernel vs plain, jumper inputs N={NUM_ENVS} (groups K = "
+        f"{[g[1].shape[1] for g in inputs[12]]}, {frac} dust stamps at "
+        f"fractional scales): bitwise equal; kernel {ms1:.4f} ms, plain "
+        f"{plain1:.4f} ms, bound {b1:.4f} ms ({by1}); blend operations "
+        f"{scene_work(inputs)[1]}")
+    ST = jumper._scene_tensors(cfg.scene_phases, cfg.world_dim,
+                               str(env.device))
+    img = scene_kernel.scene_raw(*inputs)
+    blended = jumper._compass(img, ST)
+    needle = [compositor.stamp_group(ST["banks"]["needle"],
+                                     *jumper._needle_stamp(gs))]
+    err3, ms3, plain3 = stamps_vs_plain(blended, needle, 20)
+    b3, by3 = stamp_bound(blended, needle)
+    log(f"stamp kernel vs plain, jumper's needle N={NUM_ENVS} (P = 32, K = "
+        f"1): bitwise equal; kernel {ms3:.4f} ms, plain {plain3:.4f} ms, "
+        f"bound {b3:.4f} ms ({by3}); stamp blends "
+        f"{stamp_blends(needle, 64)}")
+
+    final = stamp_kernel.composite(blended, needle)
+    breakdown(env, bank, states[-1], actions[-1], obs_buf, [
+        ("scene inputs (jumper._scene_inputs)",
+         lambda: jumper._scene_inputs(cfg, gs)),
+        ("scene kernel (scene_raw, 2 groups)",
+         lambda: scene_kernel.scene_raw(*inputs)),
+        ("compass blend (bf16 ops)", lambda: jumper._compass(img, ST)),
+        ("needle inputs (jumper._needle_stamp)",
+         lambda: jumper._needle_stamp(gs)),
+        ("stamp kernel (composite, the needle)",
+         lambda: stamp_kernel.composite(blended, needle)),
+        ("round / clip / uint8",
+         lambda: torch.clamp(torch.round(final), 0, 255).to(torch.uint8)),
+    ])
+    return b1_launches, b3_launches, err1, err3
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1395,12 +1516,17 @@ def main():
     sums, field, climber_launches, err1 = climber_path(actions)
     # ---- 11, 12. caveflyer: main path, easy and hard B1, breakdown ----
     cave_launches, err_c = caveflyer_path(actions)
+    # ---- 13, 14. jumper: main path, B1 and B3, breakdown ----
+    jump_b1, jump_b3, err_j1, err_j3 = jumper_path(actions)
 
-    # ---- 13. result ----
-    # the main paths that run B1: coinrun, climber and caveflyer
-    scene["launches"] += climber_launches + cave_launches
-    scene["max_abs_err"] = max(scene["max_abs_err"], err_r, err1, err_c)
-    stamp["max_abs_err"] = max(stamp["max_abs_err"], serr_r)
+    # ---- 15. result ----
+    # the main paths that run B1: coinrun, climber, caveflyer and jumper;
+    # B3: bossfight and jumper
+    scene["launches"] += climber_launches + cave_launches + jump_b1
+    scene["max_abs_err"] = max(scene["max_abs_err"], err_r, err1, err_c,
+                               err_j1)
+    stamp["launches"] += jump_b3
+    stamp["max_abs_err"] = max(stamp["max_abs_err"], serr_r, err_j3)
     sums["max_abs_err"] = max(sums["max_abs_err"], err4_r)
     field["max_abs_err"] = max(field["max_abs_err"], err5_r)
     log(json.dumps({"kernels": [scene, stamp, sums, field]}))

@@ -25,7 +25,7 @@ from .core.env import Environment, EnvState, TimeStep
 
 __version__ = "0.1.0"
 
-GAMES = ("coinrun", "bossfight", "climber", "caveflyer")
+GAMES = ("coinrun", "bossfight", "climber", "caveflyer", "jumper")
 
 
 def make(game: str, device="cuda", **config) -> Environment:

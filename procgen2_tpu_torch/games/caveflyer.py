@@ -651,11 +651,8 @@ def _stamp_groups(states: State, cam, banks):
     i32 = torch.int32
 
     def group(bank, var, centers, alives=None, alpha=None):
-        # the patch origin round((c - cam) * PPU + OBS/2 - P/2): XLA folds
-        # the two constants into one add; PPU = 8 makes the product exact
-        P = bank.shape[-1]
-        px = (centers[..., 0] - cam[:, None, 0]) * PPU + (C.OBS / 2 - P / 2)
-        py = (centers[..., 1] - cam[:, None, 1]) * PPU + (C.OBS / 2 - P / 2)
+        py, px = C.stamp_origin(centers, cam[:, 0], cam[:, 1], PPU,
+                                bank.shape[-1])
         return C.stamp_group(bank, var, torch.round(py).to(i32),
                              torch.round(px).to(i32), alives, alpha)
 

@@ -536,12 +536,9 @@ def _stamp_group(states: State, cam_x, cam_y, bank):
                           dim=-1)[:, None, :]
     centers = torch.cat([level.point_pos, states.mob_pos + 0.1, acenter],
                         dim=1)
-    # XLA CPU fuses `d * PPU + OBS / 2` into one multiply-add (the product
-    # is inexact): round once, as it does
-    px = prng._fma32(centers[..., 0] - cam_x[:, None], PPU, C.OBS / 2)
-    py = prng._fma32(centers[..., 1] - cam_y[:, None], PPU, C.OBS / 2)
-    r0 = torch.round(py - 4.0).to(i32)  # P = 8
-    c0 = torch.round(px - 4.0).to(i32)
+    py, px = C.stamp_origin(centers, cam_x, cam_y, PPU, 8)
+    r0 = torch.round(py).to(i32)
+    c0 = torch.round(px).to(i32)
     var = torch.cat([crys_var, mob_var, avar], dim=1)
     alives = torch.cat([live, level.mob_alive,
                         torch.ones((N, 1), dtype=torch.bool, device=dev)],

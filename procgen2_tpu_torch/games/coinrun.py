@@ -668,10 +668,8 @@ def _scene_inputs(cfg: Config, states: State):
     gridp = torch.nn.functional.pad(packed, (W, W, W, W), value=WALL_MID)
 
     def pix(centers, P):
-        px = (centers[..., 0] - cam_x[:, None]) * PPU + C.OBS / 2
-        py = (centers[..., 1] - cam_y[:, None]) * PPU + C.OBS / 2
-        return (torch.round(py - P / 2).to(i32),
-                torch.round(px - P / 2).to(i32))
+        py, px = C.stamp_origin(centers, cam_x, cam_y, PPU, P)
+        return torch.round(py).to(i32), torch.round(px).to(i32)
 
     saw_frame = (states.t % 2).to(i32)
     mob_frame = ((states.t // 5) % 2).to(i32)

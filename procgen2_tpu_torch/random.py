@@ -6,11 +6,15 @@ The JAX package draws every level, reset and auto-reset from
 can be held against the JAX package given the same key:
 
 * `key(seed)`          -> [0, seed]              (prng.threefry_seed)
-* `split(k, n)[j]`     -> threefry(k, (0, j))    (prng._threefry_split_foldlike)
+* `split(k, n)[j]`     -> threefry(k, (0, j))    (prng._threefry_split_foldlike);
+                          `split_chain` walks a loop's chain of splits
 * `fold_in(k, d)`      -> threefry(k, (0, d))    (prng._threefry_fold_in)
 * random bits[j]       -> o1 ^ o2 of threefry(k, (0, j))
                           (prng._threefry_random_bits_partitionable)
 * `randint`            -> jax.random._randint's two-word span/multiplier trick
+                          (`randint_bits` draws the two words, and
+                          `randint_from_bits` reduces them)
+* `permutation`        -> jax.random._shuffle: a stable sort on random bits
 * `uniform`            -> jax.random._uniform's mantissa bit trick, with
                           `floats * (hi - lo) + lo` rounded once, as
                           XLA CPU's fused multiply-add does (`_fma32`)
@@ -21,6 +25,8 @@ dimension, so a batch of keys takes the place of `vmap`. All arithmetic
 is integer, so CPU and CUDA give the same words.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -93,6 +99,19 @@ def split(k: torch.Tensor, num=2) -> torch.Tensor:
     return torch.stack([o1, o2], dim=-1)
 
 
+def split_chain(k: torch.Tensor, n: int, num=2) -> torch.Tensor:
+    """The keys a loop draws when it runs `k, *subs = split(k, num)` n
+    times: [..., n, num - 1, 2]. The chain depends on nothing else, so a
+    loop whose body only uses its keys can walk it first and draw from
+    all of them at once."""
+    subs = []
+    for _ in range(n):
+        ks = split(k, num)
+        k = ks[..., 0, :]
+        subs.append(ks[..., 1:, :])
+    return torch.stack(subs, dim=-3)
+
+
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """`jax.random.fold_in`; `data` (int or int tensor, taken mod 2**32)
     broadcasts against the key's batch dims."""
@@ -116,17 +135,27 @@ def _batched(v, k, shape, dtype):
     return v
 
 
-def randint(k: torch.Tensor, shape=(), minval=0, maxval=1) -> torch.Tensor:
-    """`jax.random.randint(k, shape, minval, maxval)` with dtype int32:
-    out[..., *shape] in [minval, maxval) (minval where maxval <= minval)."""
+def randint_bits(k: torch.Tensor, shape=()):
+    """The two 32-bit draws `jax.random.randint(k, shape, ...)` reduces:
+    (higher, lower) int64 [..., *shape]. They do not depend on minval or
+    maxval, so a loop whose bounds change as it runs can draw once before
+    it and reduce each element with `randint_from_bits` later."""
     _check(k)
     shape = tuple(shape)
-    lo32, hi32 = -(2 ** 31), 2 ** 31 - 1
-    minval = _batched(minval, k, shape, torch.int64).clamp(lo32, hi32)
-    maxval = _batched(maxval, k, shape, torch.int64).clamp(lo32, hi32)
     ks = split(k)
-    higher = _bits32(ks[..., 0, :], shape)
-    lower = _bits32(ks[..., 1, :], shape)
+    return _bits32(ks[..., 0, :], shape), _bits32(ks[..., 1, :], shape)
+
+
+def randint_from_bits(higher, lower, minval=0, maxval=1) -> torch.Tensor:
+    """`randint`'s value from its two draws (`randint_bits`): int32 in
+    [minval, maxval) (minval where maxval <= minval); minval and maxval
+    numbers or int tensors broadcast against the draws."""
+    dev = higher.device
+    lo32, hi32 = -(2 ** 31), 2 ** 31 - 1
+    minval = torch.as_tensor(minval, dtype=torch.int64,
+                             device=dev).clamp(lo32, hi32)
+    maxval = torch.as_tensor(maxval, dtype=torch.int64,
+                             device=dev).clamp(lo32, hi32)
     span = (maxval - minval) & _M
     span = torch.where(maxval <= minval, torch.ones_like(span), span)
     mult = (2 ** 16) % span
@@ -137,6 +166,35 @@ def randint(k: torch.Tensor, shape=(), minval=0, maxval=1) -> torch.Tensor:
     off = (off & _M) % span
     out = ((minval + off + 2 ** 31) & _M) - 2 ** 31  # int32 wrap-around add
     return out.to(torch.int32)
+
+
+def randint(k: torch.Tensor, shape=(), minval=0, maxval=1) -> torch.Tensor:
+    """`jax.random.randint(k, shape, minval, maxval)` with dtype int32:
+    out[..., *shape] in [minval, maxval) (minval where maxval <= minval)."""
+    shape = tuple(shape)
+    higher, lower = randint_bits(k, shape)
+    return randint_from_bits(higher, lower,
+                             _batched(minval, k, shape, torch.int64),
+                             _batched(maxval, k, shape, torch.int64))
+
+
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(k, n)`: a permutation of range(n) per key,
+    int64 [..., n]. jax 0.9's `_shuffle` runs ceil(3 ln n / ln(2**32 - 1))
+    rounds (one for 2 <= n < 1626, none for n = 1); each splits
+    (k, sub) = split(k), draws 32 random bits of sub over (n,), and sorts
+    by them ascending and stable (`lax.sort_key_val`), so equal bits keep
+    their order."""
+    _check(k)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_M)))
+    perm = torch.arange(n, device=k.device).expand(k.shape[:-1] + (n,))
+    for _ in range(rounds):
+        ks = split(k)
+        k = ks[..., 0, :]
+        order = torch.sort(_bits32(ks[..., 1, :], (n,)), dim=-1,
+                           stable=True).indices
+        perm = perm.gather(-1, order)
+    return perm
 
 
 def _fma32(a, b, c) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Procedural sprite atlas, backgrounds and pixel banks (numpy), for the
-games the port has: coinrun, bossfight, climber and caveflyer.
+games the port has: coinrun, bossfight, climber, caveflyer and jumper.
 
 The port's own copy of the JAX package's `procgen2_tpu/render/atlas.py`,
 cut to the sprites those games draw; everything kept is unchanged, so
@@ -86,6 +86,12 @@ def _noise(name, lo=0.85, hi=1.15, blur=1):
 
 def _to_u8(img: np.ndarray) -> np.ndarray:
     return np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+
+
+def sprite_rgba(name: str) -> np.ndarray:
+    """Raw registered sprite texels, uint8 [S, S, 4] (host-side helper
+    for pre-rasterized overlays, e.g. jumper's screen-space compass)."""
+    return _to_u8(_REGISTRY[name]())
 
 
 def _textured_tile(name: str, base, border=None, border_px=2) -> np.ndarray:
@@ -553,6 +559,89 @@ def _smoke():
     return img
 
 
+# ---------------------------------------------------------------------------
+# Jumper (games/jumper/tilemap.cpp:24-25, common_systems.cpp:50-54,
+# jumper.cpp:297-299): bunny agent, carrot goal, spike-man hazard, compass
+# HUD textures
+# ---------------------------------------------------------------------------
+
+@sprite("carrot")
+def _carrot():
+    # Stand-in for assets/misc_assets/carrot.png
+    img = _blank()
+    x, y = _grid()
+    cone = np.clip(((1.0 - y) * 0.35 - np.abs(x - 0.5)) * S / 1.5, 0, 1) * (y > 0.25)
+    img = _fill(img, cone, (0.95, 0.5, 0.15))
+    leaf = _disc(0.42, 0.2, 0.1) + _disc(0.58, 0.2, 0.1) + _disc(0.5, 0.14, 0.1)
+    img = _fill(img, np.clip(leaf, 0, 1), (0.35, 0.75, 0.25))
+    return img
+
+
+@sprite("spikeman")
+def _spikeman():
+    # Stand-in for assets/misc_assets/spikeMan_stand.png. The reference
+    # draws it offset (-0.25,-0.25), scale 0.4 from the cell center
+    # (tilemap.cpp:49); we bake that sub-cell placement into the tile art
+    # (body occupies [0.25, 0.65]^2 of the cell).
+    img = _blank()
+    x, y = _grid()
+    ang = np.arctan2(y - 0.45, x - 0.45)
+    spikes = (np.sin(ang * 10) * 0.5 + 0.5) * 0.05
+    ring = np.clip((0.17 + spikes - np.hypot(x - 0.45, y - 0.45)) * S / 1.2, 0, 1)
+    img = _fill(img, ring, (0.85, 0.55, 0.15))
+    img = _fill(img, _disc(0.45, 0.45, 0.12), (0.95, 0.7, 0.25))
+    img = _fill(img, _disc(0.41, 0.42, 0.025), (0.05, 0.05, 0.08))
+    img = _fill(img, _disc(0.49, 0.42, 0.025), (0.05, 0.05, 0.08))
+    return img
+
+
+def _register_bunny():
+    # Stand-in for assets/misc_assets/bunny2_{ready,jump,walk1,walk2}.png
+    def bunny(kind):
+        img = _blank()
+        c = (0.92, 0.88, 0.85)
+        img = _fill(img, _disc(0.5, 0.62, 0.24), c)  # body
+        img = _fill(img, _disc(0.5, 0.34, 0.16), c)  # head
+        # ears
+        x, y = _grid()
+        for ex in (0.42, 0.58):
+            ear = (np.abs(x - ex) < 0.05) & (y > 0.02) & (y < 0.3)
+            img = _fill(img, ear.astype(np.float32), c)
+        img = _fill(img, _disc(0.56, 0.32, 0.035), (0.1, 0.05, 0.08))
+        if kind == "jump":
+            img = _fill(img, _box(0.2, 0.75, 0.45, 0.9, soft=2.0), tuple(v * 0.85 for v in c))
+            img = _fill(img, _box(0.55, 0.75, 0.8, 0.9, soft=2.0), tuple(v * 0.85 for v in c))
+        elif kind == "walk1":
+            img = _fill(img, _box(0.3, 0.82, 0.5, 0.95, soft=2.0), tuple(v * 0.85 for v in c))
+        elif kind == "walk2":
+            img = _fill(img, _box(0.5, 0.82, 0.7, 0.95, soft=2.0), tuple(v * 0.85 for v in c))
+        return img
+
+    for kind in ("stand", "jump", "walk1", "walk2"):
+        _REGISTRY[f"bunny_{kind}"] = (lambda k=kind: bunny(k))
+
+
+@sprite("compass_circle")
+def _compass_circle():
+    # Stand-in for assets/custom/jumper_compass_circle.png: an opaque grey
+    # disc (verified alpha=255 inside) with a darker rim.
+    img = _blank()
+    img = _fill(img, _disc(0.5, 0.5, 0.5, soft=1.2), (0.63, 0.63, 0.6))
+    x, y = _grid()
+    d = np.hypot(x - 0.5, y - 0.5)
+    rim = np.clip((0.5 - d) * S / 1.2, 0, 1) * np.clip((d - 0.44) * S / 1.2, 0, 1)
+    img = _fill(img, rim, (0.45, 0.45, 0.42))
+    return img
+
+
+@sprite("solid_yellow")
+def _solid_yellow():
+    # Needle/bar texture (fully opaque yellow, like the reference PNGs)
+    img = _blank()
+    img = _fill(img, np.ones((S, S)), (0.99, 1.0, 0.01))
+    return img
+
+
 _register_wall_tiles()
 _register_lava()
 _register_crates()
@@ -562,6 +651,7 @@ _register_agents()
 _register_climber_tiles()
 _register_swimmer()
 _register_explosions()
+_register_bunny()
 _register_bossfight()
 _register_agents(themes=CLIMBER_AGENT_THEMES, prefix="climber")
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import random as prng
 from . import stamp_kernel
 
 OBS = 64  # observation width/height, games/maze/maze.cpp:26-27
@@ -52,6 +53,19 @@ def stamp_kernel_ok(P, K):
     not the H100's speed."""
     return ((P >= 12 or (P >= 6 and K * P >= 96) or (P <= 6 and K >= 16))
             and _win(P) <= OBS)
+
+
+def stamp_origin(centres, cam_x, cam_y, ppu, P):
+    """The top-left obs pixel of P x P stamps centred at centres
+    [N, K, 2] under the camera (cam_x, cam_y) [N], at ppu obs pixels per
+    world unit: (c - cam) * ppu + OBS/2 - P/2, as f32 (y, x) before
+    rounding. The JAX renders write ((c - cam) * ppu + OBS/2) - P/2; XLA
+    CPU folds the two constants into one and fuses the multiply-add, so
+    the sum is rounded once (`random._fma32`; where the product is exact,
+    as at ppu = 8, that is the plain sum)."""
+    c = OBS / 2 - P / 2
+    return (prng._fma32(centres[..., 1] - cam_y[:, None], ppu, c),
+            prng._fma32(centres[..., 0] - cam_x[:, None], ppu, c))
 
 
 def _stamp_scale(N, K, alives=None, alpha=None, device=None):

@@ -1,4 +1,4 @@
-"""f32 cos and sin as XLA CPU computes them.
+"""f32 cos, sin and atan2 as XLA CPU computes them.
 
 XLA CPU lowers an f32 `jnp.cos` / `jnp.sin` to a call of the C library's
 `cosf` / `sinf`, which on x86-64 Linux is glibc's (sysdeps/ieee754/flt-32:
@@ -28,9 +28,18 @@ one: tests/test_torch_trig.py, run as a script, compares every such
 input with the fused steps emulated exactly and with XLA's result. The
 reduction's fused multiply-add, which matters near multiples of pi/2, is
 reproduced exactly (`_reduce_fast`).
+
+`atan2f` is XLA CPU's f32 `jnp.arctan2`, a call of glibc's `atan2f`
+(sysdeps/ieee754/flt-32/e_atan2f.c with s_atanf.c, fdlibm's algorithm,
+glibc 2.36). It is not correctly rounded either (up to 1.3 ulp), so it is
+transcribed step for step in f32 torch ops, each rounded on its own as
+the compiled code rounds each SSE operation: the x86-64 build has no
+fused multiply-add in these two functions. The constants are the
+installed libm's, as hex literals.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # glibc __sincosf_table: the quadrant signs, 2/pi * 2**24, pi/2, and the
@@ -171,3 +180,113 @@ def sincos32(x: torch.Tensor):
         (2,) + (1,) * x.ndim)
     c, s = _sincos(torch.stack([x, x]), pick)
     return c, s
+
+
+# glibc e_atan2f.c and s_atanf.c constants (f32 bit patterns, as the
+# x86-64 libm holds them)
+def _f32(bits):
+    return float(np.uint32(bits).view(np.float32))
+
+
+_PI = _f32(0x40490FDB)
+_PI_O_2 = _f32(0x3FC90FDB)
+_PI_O_4 = _f32(0x3F490FDB)
+_PI_LO = _f32(0xB3BBBD2E)  # pi - _PI
+_TINY = _f32(0x0DA24260)  # 1e-30: only sets the inexact flag
+_ATANHI = tuple(_f32(b) for b in (0x3EED6338, 0x3F490FDA, 0x3F7B985E,
+                                  0x3FC90FDA))  # atan(0.5, 1, 1.5, inf)
+_ATANLO = tuple(_f32(b) for b in (0x31AC3769, 0x33222168, 0x33140FB4,
+                                  0x33A22168))
+_AT = tuple(_f32(b) for b in (
+    0x3EAAAAAB, 0xBE4CCCCD, 0x3E124925, 0xBDE38E38, 0x3DBA2E6E, 0xBD9D8795,
+    0x3D886B35, 0xBD6EF16B, 0x3D4BDA59, 0xBD15A221, 0x3C8569D7))
+
+
+def _atanf(v: torch.Tensor) -> torch.Tensor:
+    """glibc `__atanf` of the f32 tensor v (NaN excepted), every operation
+    an f32 torch op: the reduction by the |v| thresholds 2**-29, 7/16,
+    11/16, 19/16, 39/16 and 2**25, then fdlibm's odd and even
+    polynomials."""
+    hx = v.view(torch.int32)
+    ix = hx & 0x7FFFFFFF
+    a = torch.abs(v)
+    one = torch.ones_like(v)
+    # the reduced argument t and the table index id (-1: none)
+    t = torch.where(ix < 0x3F300000, (a + a - one) / (a + 2.0),
+                    (a - one) / (a + one))
+    t = torch.where(ix < 0x3F980000, t, torch.where(
+        ix < 0x401C0000, (a - 1.5) / (a * 1.5 + one), -one / a))
+    small = ix < 0x3EE00000
+    t = torch.where(small, v, t)
+    idx = ((ix >= 0x3F300000).long() + (ix >= 0x3F980000).long()
+           + (ix >= 0x401C0000).long())
+    z = t * t
+    w = z * z
+    s1 = _AT[10] * w + _AT[8]
+    for c in (_AT[6], _AT[4], _AT[2], _AT[0]):
+        s1 = s1 * w + c
+    s1 = s1 * z
+    s2 = _AT[9] * w + _AT[7]
+    for c in (_AT[5], _AT[3], _AT[1]):
+        s2 = s2 * w + c
+    s2 = s2 * w
+    xs = (s1 + s2) * t
+    lo = torch.tensor(_ATANLO, dtype=torch.float32, device=v.device)[idx]
+    hi = torch.tensor(_ATANHI, dtype=torch.float32, device=v.device)[idx]
+    r = hi - ((xs - lo) - t)
+    r = torch.where(hx < 0, -r, r)
+    r = torch.where(small, t - xs, r)
+    r = torch.where(ix < 0x31000000, v, r)
+    big = torch.full_like(v, _ATANHI[3]) + _ATANLO[3]
+    big = torch.where(ix > 0x7F800000, v + v, torch.where(hx > 0, big, -big))
+    return torch.where(ix >= 0x4C000000, big, r)
+
+
+def _flush(v: torch.Tensor) -> torch.Tensor:
+    """v with subnormals replaced by zeros of their sign. XLA CPU runs with
+    the SSE flags that treat subnormal operands as zero and flush
+    subnormal results to zero (DAZ, FTZ); of atan2f's arithmetic only the
+    division y / x can meet or make a subnormal."""
+    return torch.where((v.view(torch.int32) & 0x7F800000) == 0, v * 0.0, v)
+
+
+def atan2f(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """f32 atan2(y, x), bit for bit XLA CPU's `jnp.arctan2` (glibc's
+    `atan2f`): the special cases of zeros, infinities and NaN, x == 1
+    (atanf(y)), |y/x| beyond 2**60 either way, and else atanf(|y / x|)
+    moved into the quadrant with pi's low part."""
+    if y.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"atan2f takes float32, got {y.dtype}, {x.dtype}")
+    y, x = torch.broadcast_tensors(y, x)
+    hx, hy = x.view(torch.int32), y.view(torch.int32)
+    ix, iy = hx & 0x7FFFFFFF, hy & 0x7FFFFFFF
+    m = ((hy >> 31) & 1) | ((hx >> 30) & 2)  # 2 * sign(x) + sign(y)
+
+    def pick(values):  # values[m] as f32, one per quadrant
+        return torch.tensor(values, dtype=torch.float32, device=x.device)[m]
+
+    f = np.float32
+    pi = f(_PI) + f(_TINY)
+    pio2 = f(_PI_O_2) + f(_TINY)
+    pio4 = f(_PI_O_4) + f(_TINY)
+    pio4x3 = f(3.0) * f(_PI_O_4) + f(_TINY)
+
+    k = (iy - ix) >> 23
+    z = torch.where(k > 60, torch.full_like(x, float(f(_PI_O_2) + f(0.5) * f(_PI_LO))),
+                    _atanf(torch.abs(_flush(_flush(y) / _flush(x)))))
+    z = torch.where((hx < 0) & (k < -60), torch.zeros_like(x), z)
+    zlo = z - _PI_LO
+    out = torch.where(m == 0, z, torch.where(
+        m == 1, -z, torch.where(m == 2, _PI - zlo, zlo - _PI)))
+    out = torch.where(iy == 0x7F800000,
+                      torch.where(hy < 0, -pio2, pio2).to(x.dtype), out)
+    out = torch.where(ix == 0x7F800000, torch.where(
+        iy == 0x7F800000, pick((pio4, -pio4, pio4x3, -pio4x3)),
+        pick((0.0, -0.0, pi, -pi))), out)
+    out = torch.where(ix == 0, torch.where(hy < 0, -pio2, pio2).to(x.dtype),
+                      out)
+    out = torch.where(iy == 0, torch.where(m < 2, y, pick((0.0, 0.0, pi, -pi))),
+                      out)
+    out = torch.where(hx == 0x3F800000, _atanf(y), out)
+    nan = (ix > 0x7F800000) | (iy > 0x7F800000)
+    return torch.where(nan, x + y, out)

@@ -1,6 +1,6 @@
 """The port's own asset modules (procgen2_tpu_torch/render/atlas.py and
-phases.py, numpy copies cut to what coinrun, bossfight, climber and
-caveflyer draw)
+phases.py, numpy copies cut to what coinrun, bossfight, climber,
+caveflyer and jumper draw)
 against the JAX package's: every bank these games build must be
 identical, array for array, and so must the asset tables, phase tables,
 window spans and expansion tables they come from."""
@@ -11,12 +11,14 @@ from procgen2_tpu.games import bossfight as jboss
 from procgen2_tpu.games import caveflyer as jcave
 from procgen2_tpu.games import climber as jclimb
 from procgen2_tpu.games import coinrun as jcoin
+from procgen2_tpu.games import jumper as jjump
 from procgen2_tpu.render import atlas as jatlas
 from procgen2_tpu.render import phases as jphases
 from procgen2_tpu_torch.games import bossfight as tboss
 from procgen2_tpu_torch.games import caveflyer as tcave
 from procgen2_tpu_torch.games import climber as tclimb
 from procgen2_tpu_torch.games import coinrun as tcoin
+from procgen2_tpu_torch.games import jumper as tjump
 from procgen2_tpu_torch.render import atlas as tatlas
 from procgen2_tpu_torch.render import phases as tphases
 
@@ -76,6 +78,28 @@ def test_caveflyer_banks_identical(fn, args):
     bullets, ship, smoke) and the scene assets of the three cave sizes."""
     same_kept(getattr(jcave, fn)(*args), getattr(tcave, fn)(*args),
               f"caveflyer.{fn}{args}")
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("_assets", ()), ("_stamp_banks", ()), ("_compass_overlay", (64,)),
+    ("_scene_assets", (4, 20)), ("_scene_assets", (4, 40)),
+    ("_scene_assets", (4, 45))])
+def test_jumper_banks_identical(fn, args):
+    """The atlas (climber's tile themes, carrot, spikeman, dust circle,
+    compass circle, needle yellow, bunny poses) and sky backgrounds, the
+    moving / bunny / needle pixel banks, the compass overlay (the atlas
+    fallback: no reference PNG is installed) and the scene assets of the
+    three world sizes."""
+    same_kept(getattr(jjump, fn)(*args), getattr(tjump, fn)(*args),
+              f"jumper.{fn}{args}")
+
+
+def test_jumper_sprites_identical():
+    """The raw sprites jumper's compass overlay samples (`sprite_rgba`),
+    and every sprite of jumper's atlas."""
+    for name in ("carrot", "spikeman", "compass_circle", "solid_yellow",
+                 "bunny_stand", "bunny_jump", "bunny_walk1", "bunny_walk2"):
+        same(jatlas.sprite_rgba(name), tatlas.sprite_rgba(name), name)
 
 
 def test_climber_merged_bank_identical():

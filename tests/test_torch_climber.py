@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import chip_smoke
+from jax_capture import render_inputs
 import procgen2_tpu as pg
 import procgen2_tpu_torch as pt
 from procgen2_tpu.games import climber as jclimb
@@ -270,28 +271,61 @@ def test_observe_batch_matches_jax(banks, seed):
 
 
 def test_stamp_placement_rounds_as_xla(banks):
-    """The stamps' pixel offsets: XLA CPU fuses `(c - cam) * PPU + 32`
-    into one multiply-add, which the port reproduces (random._fma32), so
-    r0/c0 are exact, near halves included; two roundings would not be."""
+    """The stamps' pixel offsets: XLA CPU folds `(c - cam) * PPU + 32 - 4`
+    into one multiply-add with 28 and fuses it, which the port reproduces
+    (random._fma32), so r0/c0 are exact, near halves included; rounding
+    the sum with 32 first would not be."""
     st = random_states(banks[0], 20, n=NUM_LEVELS)
     tst = convert.state(tclimb, st, "cpu")
     cam_x, cam_y, *_ = tclimb._camera(tclimb.Config(), tst)
     centers = torch.cat([tst.level.point_pos, tst.mob_pos + 0.1], dim=1)
 
     @jax.jit
-    def pix(c, cam):  # the JAX package's `pix` (climber.py:552-556)
-        return (c - cam[:, None]) * jclimb.PPU + 64 / 2
+    def pix(c, cam):  # climber.py:552-556, the row offset of a P = 8 patch
+        return ((c - cam[:, None]) * jclimb.PPU + 64 / 2) - 8 / 2
 
     want = np.asarray(pix(jnp.asarray(centers[..., 1].numpy()),
                           jnp.asarray(cam_y.numpy())))
-    fused = R._fma32(centers[..., 1] - cam_y[:, None], tclimb.PPU, 32.0)
-    twice = (centers[..., 1] - cam_y[:, None]) * tclimb.PPU + 32.0
+    fused = R._fma32(centers[..., 1] - cam_y[:, None], tclimb.PPU, 28.0)
+    twice = R._fma32(centers[..., 1] - cam_y[:, None], tclimb.PPU, 32.0) - 4.0
     np.testing.assert_array_equal(want.view(np.int32),
                                   fused.numpy().view(np.int32))
     assert (want != twice.numpy()).any()
     _, _, _, r0, c0 = tclimb._stamp_group(tst, cam_x, cam_y, None)
-    np.testing.assert_array_equal(np.round(want - 4).astype(np.int32),
+    np.testing.assert_array_equal(np.round(want).astype(np.int32),
                                   r0[:, :2 * tclimb.MAX_POINTS].numpy())
+
+
+def test_stamp_placement_matches_xla_near_half_pixels(banks):
+    """The same fold in the render's own graph: on 64 states (a batch XLA
+    runs in its vector loop) whose crystals lie within a few ulp of half a
+    pixel, where rounding the sum with 32 first gives another pixel, the
+    port's pixels equal those the JAX render hands its scene kernel
+    (jax_capture)."""
+    rng = np.random.default_rng(41)
+    f32 = np.float32
+    st = random_states(banks[0], 31, n=N)
+    st = jax.tree.map(lambda a: np.resize(a, (4096,) + a.shape[1:]), st)
+    cam_y = np.round((st.pos[:, 1] - f32(8.5)) * f32(4)).astype(f32) * f32(0.25)
+    cam = np.stack([np.full(4096, f32(tclimb.MAP_W / 2)), cam_y], -1)
+    k = tclimb.MAX_POINTS
+    off = (rng.integers(0, 60, (4096, k, 2)) + 0.5 - 28.0) / tclimb.PPU
+    pts = np.float32(cam[:, None] + off)
+    pts = (pts + rng.integers(-6, 7, pts.shape) * np.spacing(pts)).astype(f32)
+    d = pts - cam[:, None]
+    once = np.round((np.float64(d) * np.float64(f32(tclimb.PPU))
+                     + 28.0).astype(f32))
+    twice = np.round((np.float64(d) * np.float64(f32(tclimb.PPU))
+                      + 32.0).astype(f32) - f32(4))
+    pick = np.flatnonzero((once != twice).reshape(4096, -1).any(1))[:64]
+    assert pick.size == 64
+    st = jax.tree.map(lambda a: a[pick], st)
+    st = st.replace(level=st.level.replace(point_pos=pts[pick]))
+    want = render_inputs(jclimb, jclimb.Config(), _to_jax_state(st))
+    got = tclimb._scene_inputs(tclimb.Config(), convert.state(tclimb, st, "cpu"))
+    for w, g in zip(want["groups"], got[12]):
+        for a, b in zip(w, g[1:]):
+            same(a, b)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

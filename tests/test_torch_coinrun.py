@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_capture import render_inputs
 from procgen2_tpu.games import coinrun as jcoin
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import coinrun as tcoin
@@ -192,3 +193,50 @@ def test_unported_render_paths_raise(banks):
         tcoin.observe(tcoin.Config(), st)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcoin.observe_batch(tcoin.Config(scene_phases=0), st)
+
+
+def _near_half(cam, rng, ppu, c):
+    """f32 centres, one per camera coordinate of cam, whose pixel
+    (centre - cam) * ppu + c lies within a few ulp of a half."""
+    off = (rng.integers(0, 60, cam.shape) + 0.5 - c) / ppu
+    v = np.float32(cam + off)
+    return (v + rng.integers(-6, 7, v.shape) * np.spacing(v)).astype(
+        np.float32)
+
+
+def _split_roundings(d, ppu, c):
+    """bool: (d * ppu + 32) rounded, then - (32 - c) rounded, gives another
+    pixel than d * ppu + c rounded once (f32 d)."""
+    f32 = np.float32
+    once = np.round((np.float64(d) * np.float64(f32(ppu)) + c).astype(f32))
+    twice = np.round((d * f32(ppu) + f32(32)) - f32(32 - c))
+    return once != twice
+
+
+def test_stamp_placement_matches_xla_near_half_pixels(banks):
+    """XLA CPU folds the stamp placement (c - cam) * 4.8 + 32 - P / 2
+    (coinrun.py:770-773) into one multiply-add with the constant 32 - P/2
+    and fuses it, so a placement is rounded once; rounding the sum with 32
+    first, then subtracting P/2, gives another pixel near half pixels. On
+    64 states (a batch XLA runs in its vector loop) whose coin lies within
+    a few ulp of half a pixel, where the two differ, the port's pixels
+    equal those the JAX render hands its scene kernel (jax_capture)."""
+    rng = np.random.default_rng(40)
+    f32 = np.float32
+    st = random_states(banks[0], 30)
+    st = jax.tree.map(lambda a: np.resize(a, (16384,) + a.shape[1:]), st)
+    cam = np.stack([np.round(st.pos[:, 0] * f32(4)),
+                    np.round((st.pos[:, 1] - f32(0.5)) * f32(4))],
+                   -1).astype(f32) * f32(0.25)
+    coin = _near_half(cam, rng, 4.8, 28.0)
+    split = _split_roundings(coin - cam, 4.8, 28.0).any(1)
+    pick = np.flatnonzero(split)[:64]
+    assert pick.size == 64
+    st = jax.tree.map(lambda a: a[pick], st)
+    st = st.replace(level=st.level.replace(coin_pos=coin[pick]))
+    want = render_inputs(jcoin, jcoin.Config(), jax.tree.map(
+        jnp.asarray, st.replace(rng=jax.random.wrap_key_data(st.rng))))
+    got = tcoin._scene_inputs(tcoin.Config(), convert.state(tcoin, st, "cpu"))
+    for w, g in zip(want["groups"], got[12]):
+        for a, b in zip(w, g[1:]):
+            same(a, b)

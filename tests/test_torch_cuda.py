@@ -2,9 +2,10 @@
 and the stamp kernels (B3, B4) against their plain torch versions
 (bitwise, B1, B3 and B4 also on the edge cases of their staged slot
 tables, B5 on odd kinds), stamp groups off the kernel path, the kernel
-wrappers' checks, threefry words and cos32/sin32 on the card,
-and coinrun, bossfight, climber and caveflyer on the card against the
-same games on the CPU.
+wrappers' checks, threefry words, cos32/sin32 and atan2f on the card,
+B1 on jumper's scene and B3 on jumper's needle group (P = 32, K = 1) at
+every offset across the frame's edges, and coinrun, bossfight, climber,
+caveflyer and jumper on the card against the same games on the CPU.
 
 They skip without a card. This file imports no jax, so it runs on a
 machine without it; there, skip the repo's conftest (which sets jax up):
@@ -20,7 +21,7 @@ import chip_smoke
 import procgen2_tpu_torch as pt
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch import trig
-from procgen2_tpu_torch.games import caveflyer, climber
+from procgen2_tpu_torch.games import caveflyer, climber, jumper
 from procgen2_tpu_torch.render import compositor
 from procgen2_tpu_torch.render import scene_kernel as sk
 from procgen2_tpu_torch.render import stamp_kernel as stk
@@ -654,4 +655,111 @@ def test_caveflyer_on_card_matches_cpu(dev):
     for (ra, da), (rb, db) in zip(cpu[1], gpu[1]):
         assert torch.equal(ra, rb) and torch.equal(da, db)
     for a, b in zip(cpu[2], gpu[2]):
+        assert torch.equal(a, b)
+
+
+def test_atan2f_same_on_cuda(dev):
+    """atan2f (glibc's atan2f in f32 ops, subnormals flushed) gives the
+    same bits on the card as on the CPU: random exponents, the axes,
+    zeros, infinities and NaN."""
+    g = torch.Generator().manual_seed(0)
+    e = torch.randint(-150, 128, (2, 300000), generator=g).double()
+    m = 1 + torch.rand((2, 300000), generator=g, dtype=torch.float64)
+    sign = torch.where(torch.rand((2, 300000), generator=g) < 0.5, -1.0, 1.0)
+    y, x = (m * 2.0 ** e * sign).float()
+    special = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.5, float("inf"),
+                            float("-inf"), float("nan"), 1e-40])
+    sy, sx = torch.meshgrid(special, special, indexing="ij")
+    y, x = torch.cat([y, sy.flatten()]), torch.cat([x, sx.flatten()])
+    want = trig.atan2f(y, x)
+    got = trig.atan2f(y.to(dev), x.to(dev)).cpu()
+    same = (want.view(torch.int32) == got.view(torch.int32)) | (
+        want.isnan() & got.isnan())
+    assert same.all()
+
+
+def test_jumper_kernels_match_plain(dev):
+    """B1 on jumper's real scene inputs (two stamp groups, dust at
+    fractional scales) and B3 on its needle group, easy and hard, at 257
+    envs after 4 steps, bitwise."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    for mode in ("easy", "hard"):
+        env = pt.make("jumper", device=dev, mode=mode)
+        bank = env.generate_bank(R.key(5, env.device), 16)
+        state, _ = env.reset(bank, R.key(6, env.device), 257)
+        for _ in range(4):
+            a = torch.randint(0, 15, (257,), generator=g, device=dev)
+            state, _ = env.step(bank, state, a, render=False)
+        args = jumper._scene_inputs(env.cfg, state.game)
+        assert [grp[1].shape[1] for grp in args[12]] == [11, 1]
+        img = sk.scene_raw(*args)
+        assert torch.equal(_bits(img), _bits(sk.scene_raw_reference(*args)))
+        group = compositor.stamp_group(
+            jumper._scene_tensors(4, env.cfg.world_dim, str(dev))["banks"][
+                "needle"], *jumper._needle_stamp(state.game))
+        got = stk.composite(img, [group])
+        assert torch.equal(_bits(got), _bits(stk.composite_reference(
+            img, [group])))
+
+
+def test_needle_group_at_every_edge_offset(dev):
+    """B3 on one K = 1, P = 32 group (jumper's needle bank) with the
+    needle at every row and every column offset from -P - 1 to obs + 1,
+    every variant, over a frame of whole values, bitwise against the
+    plain version."""
+    bank = jumper._scene_tensors(4, 20, str(dev))["banks"]["needle"]
+    P, obs = 32, 64
+    span = obs + P + 3
+    e = torch.arange(2 * span, device=dev)
+    r0 = (-P - 1 + e % span).to(torch.int32)[:, None]
+    c0 = (-P - 1 + (e * 37) % span).to(torch.int32)[:, None]
+    var = (e % 64).to(torch.int32)[:, None]
+    g = torch.Generator(device=dev).manual_seed(2)
+    img = torch.randint(0, 256, (2 * span, 3, obs, obs), generator=g,
+                        device=dev, dtype=torch.int32).to(torch.bfloat16)
+    assert compositor.stamp_kernel_ok(P, 1)
+    before = stk.composite.launches
+    got = compositor.composite_stamps(img, bank, var, r0, c0)
+    torch.cuda.synchronize()
+    assert stk.composite.launches == before + 1
+    group = compositor.stamp_group(bank, var, r0, c0)
+    assert torch.equal(_bits(got), _bits(stk.composite_reference(img, [group])))
+
+
+def test_jumper_on_card_matches_cpu(dev):
+    """make("jumper") on the card against make(device="cpu"): the bank
+    (the maze generator, spikes and breakup on the card), and with lane 0
+    on its carrot (+10) and a lane on a spike (death, 0), so that both end
+    and auto-reset on the card; 4 steps."""
+    n = 16
+    out = {}
+    for d in ("cpu", "cuda"):
+        env = pt.make("jumper", device=d)
+        bank = env.generate_bank(R.key(5, env.device), n)
+        state, ts = env.reset(bank, R.key(6, env.device), n)
+        gs, lanes = chip_smoke.place_jumper_lanes(state.game, n)
+        state = dataclasses.replace(state, game=gs)
+        frames, states, rewards = [ts.obs.cpu()], [], []
+        g = torch.Generator().manual_seed(0)
+        for _ in range(4):
+            a = torch.randint(0, 15, (n,), generator=g, dtype=torch.int32)
+            state, ts = env.step(bank, state, a.to(env.device))
+            frames.append(ts.obs.cpu())
+            states.append(tree_map(lambda x: x.cpu(), state))
+            rewards.append((ts.reward.cpu(), ts.terminated.cpu()))
+        out[d] = (tree_map(lambda x: x.cpu(), bank), states, rewards, frames,
+                  lanes)
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu[4] == gpu[4]
+    (reward0, done0), state0 = gpu[2][0], gpu[1][0]
+    assert done0[gpu[4]].all() and reward0[gpu[4]].tolist() == [10.0, 0.0]
+    assert state0.game.t[gpu[4]].tolist() == [0, 0]  # both lanes restarted
+    bad = []
+    for a, b in zip([cpu[0]] + cpu[1], [gpu[0]] + gpu[1]):
+        tree_map(lambda x, y: None if torch.equal(x, y)
+                 else bad.append(x.shape), a, b)
+    assert not bad, bad
+    for (ra, da), (rb, db) in zip(cpu[2], gpu[2]):
+        assert torch.equal(ra, rb) and torch.equal(da, db)
+    for a, b in zip(cpu[3], gpu[3]):
         assert torch.equal(a, b)

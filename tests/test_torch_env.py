@@ -238,7 +238,8 @@ def test_make_rejects_what_is_not_ported():
 
 def test_port_imports_no_jax():
     """The port runs where jax is not installed, and uses nothing of the
-    JAX package: importing it and running a step of every ported game,
+    JAX package: importing it and running a step of every ported game
+    (jumper's with its maze generator and atan2f),
     `compositor.stamps_from_pixel_bank` and `scene_kernel.scene` loads
     neither jax nor flax nor the JAX package, and no module in
     sys.modules comes from a file under procgen2_tpu/ (which a load by
@@ -259,7 +260,7 @@ def test_port_imports_no_jax():
         sys.meta_path.insert(0, Blocker())
         import torch
         import procgen2_tpu_torch as pt
-        for game in ("coinrun", "bossfight", "caveflyer", "climber"):
+        for game in ("coinrun", "bossfight", "caveflyer", "jumper", "climber"):
             env = pt.make(game, device="cpu")
             bank = env.generate_bank(pt.random.key(0), 2)
             state, ts = env.reset(bank, pt.random.key(1), 2)

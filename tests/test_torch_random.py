@@ -135,3 +135,21 @@ def test_bad_keys_and_seeds_raise():
     with pytest.raises(ValueError):
         R.key(2 ** 31)
 
+
+
+@pytest.mark.parametrize("num", [2, 3])
+def test_split_chain(num):
+    """The keys of a loop running `key, *subs = split(key, num)`, walked
+    before it, equal the loop's, per level of a batch of keys."""
+    ks = jax.random.split(jax.random.key(4), 5)
+
+    def chain(k):
+        subs = []
+        for _ in range(7):
+            k, *sub = jax.random.split(k, num)
+            subs.append(jnp.stack([jax.random.key_data(s) for s in sub]))
+        return jnp.stack(subs)
+
+    want = np.asarray(jax.vmap(chain)(ks)).astype(np.int64)
+    got = R.split_chain(torch.from_numpy(words(ks)), 7, num)
+    np.testing.assert_array_equal(want, got.numpy())

@@ -1,5 +1,5 @@
-"""The port's cos32/sin32 (procgen2_tpu_torch/trig.py) against XLA CPU's
-f32 `jnp.cos`/`jnp.sin`, bitwise (f32 compared as int32 views, nan as
+"""The port's cos32/sin32 and atan2f (procgen2_tpu_torch/trig.py) against
+XLA CPU's f32 `jnp.cos`/`jnp.sin` and `jnp.arctan2`. cos and sin bitwise (f32 compared as int32 views, nan as
 nan), on over 10**6 angles: uniform over several ranges up to |x| = 10**4,
 tiny values around 2**-12, values around glibc's thresholds 0.75 (its
 pi/4 test on the top 12 bits) and 120 (the large-argument reduction),
@@ -15,7 +15,17 @@ with the fused steps emulated exactly. Run as a script,
 
 it compares the port's cos32 and sin32 on every f32 x with LO <= |x| <
 HI with the fused polynomial's and with XLA's, and prints the inputs
-where they differ."""
+where they differ.
+
+atan2f is held to jax.jit(jnp.arctan2) with a tolerance of 0 ulp (the
+same bits; NaN as NaN) on over 10**6 f32 pairs: random signs and
+exponents over the whole f32 range (subnormals too, which XLA's CPU
+flags read and write as zeros), the axes, signed zeros, infinities and
+NaN, ratios |y/x| within a few ulp of atanf's branch points (2**-29,
+2**-26, 7/16, 11/16, 19/16, 39/16, 2**25) and of atan2f's (2**60), and
+x == 1; and on vectors within a few ulp of each of jumper's compass-needle
+bin boundaries, angle = (k + 0.5) * 2 pi / 64."""
+import ctypes
 import sys
 import time
 
@@ -209,6 +219,105 @@ def test_unfused_polynomial_rounds_as_the_fused_one(angles):
 def test_rejects_other_dtypes():
     with pytest.raises(TypeError):
         trig.cos32(torch.zeros(3, dtype=torch.float64))
+
+
+def _atan2_pairs():
+    """(y, x) f32 pairs, over 10**6 of them."""
+    rng = np.random.default_rng(2)
+
+    def spread(n):  # every exponent, subnormals included, either sign
+        e = rng.integers(-150, 128, n)
+        m = rng.uniform(1, 2, n)
+        return (m * 2.0 ** e * rng.choice([-1, 1], n)).astype(np.float32)
+
+    ys, xs = [spread(600_000)], [spread(600_000)]
+    ys.append(rng.uniform(-30, 30, 300_000).astype(np.float32))
+    xs.append(rng.uniform(-30, 30, 300_000).astype(np.float32))
+    for r in (2.0 ** -29, 2.0 ** -26, 7 / 16, 11 / 16, 19 / 16, 39 / 16,
+              2.0 ** 25, 2.0 ** 60, 2.0 ** -60):
+        x = spread(20_000)
+        ulp = rng.integers(-8, 9, 20_000) * 2.0 ** -23
+        with np.errstate(over="ignore"):  # some overflow to +-inf
+            y = (x.astype(np.float64) * r * (1 + ulp)).astype(np.float32)
+        ys.append(y * rng.choice(np.float32([-1, 1]), 20_000))
+        xs.append(x)
+    ys.append(spread(20_000))  # x == 1: atanf(y)
+    xs.append(np.ones(20_000, np.float32))
+    special = np.float32([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0,
+                          2.5, -2.5, 1e-45, -1e-45, 3e38, -3e38, 1e-40])
+    Y, X = np.meshgrid(special, special)
+    ys.append(Y.ravel())
+    xs.append(X.ravel())
+    return np.concatenate(ys), np.concatenate(xs)
+
+
+@pytest.fixture(scope="module")
+def atan2_pairs():
+    y, x = _atan2_pairs()
+    return y, x, np.asarray(jax.jit(jnp.arctan2)(y, x))
+
+
+def test_atan2f_matches_xla(atan2_pairs):
+    y, x, want = atan2_pairs
+    assert y.size >= 10 ** 6
+    got = trig.atan2f(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    bad = ~_same(want, got)
+    assert not bad.any(), list(zip(y[bad][:10], x[bad][:10]))
+
+
+def test_atan2f_is_neither_float64_nor_libm_on_subnormals(atan2_pairs):
+    """Why atan2f is transcribed: float64 rounded once differs from XLA in
+    many pairs; glibc's atan2f called directly differs on subnormal
+    operands and results, which XLA's CPU flags flush to zero."""
+    y, x, want = atan2_pairs
+    f64 = np.arctan2(y.astype(np.float64), x.astype(np.float64)).astype(
+        np.float32)
+    assert (~_same(want, f64)).sum() > 10_000
+    libm = ctypes.CDLL("libm.so.6")
+    libm.atan2f.restype = ctypes.c_float
+    libm.atan2f.argtypes = [ctypes.c_float, ctypes.c_float]
+    pick = np.random.default_rng(3).choice(y.size, 20_000, replace=False)
+    lib = np.float32([libm.atan2f(y[i], x[i]) for i in pick])
+    sub = (np.abs(y[pick]) < 2.0 ** -126) | (np.abs(x[pick]) < 2.0 ** -126)
+    assert _same(want[pick], lib)[~sub & (np.abs(lib) >= 2.0 ** -126)].all()
+    assert (~_same(want[pick], lib)).any()
+
+
+def test_atan2f_near_needle_bin_boundaries():
+    """Vectors whose angle lies within a few ulp of a bin boundary of
+    jumper's needle, (k + 0.5) * 2 pi / 64: atan2f and the bin
+    round(angle * f32(64 / 2 pi)) mod 64 equal XLA's."""
+    rng = np.random.default_rng(4)
+    k = np.arange(-64, 64)
+    theta = (k + 0.5) * 2 * np.pi / 64
+    r = rng.uniform(0.05, 60.0, (k.size, 400))
+    x = (r * np.cos(theta)[:, None]).astype(np.float32)
+    y = (r * np.sin(theta)[:, None]).astype(np.float32)
+    step = rng.integers(-4, 5, (2,) + x.shape).astype(np.float32)
+    x = x + step[0] * np.spacing(x)
+    y = y + step[1] * np.spacing(y)
+    x, y = x.ravel(), y.ravel()
+
+    @jax.jit
+    def xla_bin(y, x):  # jumper.py:814-817
+        angle = jnp.arctan2(y, x)
+        return angle, jnp.mod(jnp.round(angle * (64 / (2 * np.pi))).astype(
+            jnp.int32), 64)
+
+    want_a, want_b = (np.asarray(v) for v in xla_bin(y, x))
+    got_a = trig.atan2f(torch.from_numpy(y), torch.from_numpy(x))
+    got_b = torch.remainder(torch.round(got_a * (64 / (2 * np.pi))).to(
+        torch.int32), 64)
+    assert _same(want_a, got_a.numpy()).all()
+    np.testing.assert_array_equal(want_b, got_b.numpy())
+    # both bins of a boundary are reached at nearly all of them
+    sides = len(set(zip(k.repeat(400).tolist(), want_b.tolist())))
+    assert sides >= 1.8 * k.size
+
+
+def test_atan2f_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        trig.atan2f(torch.zeros(3, dtype=torch.float64), torch.zeros(3))
 
 
 def _sweep(lo, hi, chunk=1 << 21):
