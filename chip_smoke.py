@@ -1,9 +1,9 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the port's
 kernels from this checkout, holds each against its plain torch version,
-drives the main paths of coinrun, bossfight, climber, caveflyer and
-jumper at full width, drives the render entry points of the stamp-sum and
-expanded-field scene kernels on climber's real inputs, and checks the
-results.
+drives the main paths of coinrun, bossfight, climber, caveflyer, jumper,
+chaser and maze (maze at the bench's 8192 envs) at full width, drives
+the render entry points of the stamp-sum and expanded-field scene kernels
+on climber's real inputs, and checks the results.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -96,7 +96,28 @@ Phases (any failure raises, so the exit code is non-zero and the final
      over the compass-blended frame, bitwise, each timed with its bound;
  14. where the time goes (jumper), as in 5, with the compass blend and
      the needle's stamp kernel as parts of their own;
- 15. prints the kernels' JSON line (with each kernel's least possible
+ 15. chaser main path: make("chaser") (easy, 11 x 11) ->
+     generate_bank(1024) -> reset(4096) -> lane 0 left with nothing to
+     collect (+10) and lane 1's agent under a hatched enemy (death, 0),
+     both holding still on their first step -> 8 steps writing obs into
+     the uint8 buffer; no kernel may launch (its render is a kind field
+     and one stamp group off the kernel path), both lanes' termination and
+     restart on step 0, shapes, dtypes, rewards and obs are checked; the
+     first 8 envs are re-run on the CPU and must match exactly at every
+     step; peak device memory;
+ 16. where the time goes (chaser), as in 5, with the render's parts (kind
+     field, background, the 3 kind blends, the stamp group) and the
+     device's idle share;
+ 17. maze main path at the bench's shape (procgen2_tpu/bench.py:31):
+     make("maze", mode="easy") -> generate_bank(2048) -> reset(8192) ->
+     lane 0 on its goal (+10) and lane 1 at its last step (terminated
+     with 0), both holding still on their first step -> 8 steps into a
+     uint8 [8, 8192, 64, 64, 3] buffer, checked as in 15, with the CPU
+     re-run and peak device memory; where the time goes, as in 16 (the 4
+     kind blends); then maze hard and memory (the agent-centred camera):
+     256 levels, reset(4096), 2 steps, no kernel, the CPU re-run of 8 envs;
+ 18. the script's total wall time;
+ 19. prints the kernels' JSON line (with each kernel's least possible
      time on this card, `bound_ms`), then the `ok` line last.
 """
 from __future__ import annotations
@@ -115,8 +136,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
 import procgen2_tpu_torch as pt  # noqa: E402
 from procgen2_tpu_torch import random as prng  # noqa: E402
-from procgen2_tpu_torch.games import (bossfight, caveflyer, climber,  # noqa: E402
-                                     coinrun, jumper)
+from procgen2_tpu_torch.games import (bossfight, caveflyer, chaser,  # noqa: E402
+                                     climber, coinrun, jumper, maze)
 from procgen2_tpu_torch.render import compositor  # noqa: E402
 from procgen2_tpu_torch.render import scene_kernel, stamp_kernel  # noqa: E402
 from procgen2_tpu_torch.utils import (bank_gather, tree_map,  # noqa: E402
@@ -124,6 +145,7 @@ from procgen2_tpu_torch.utils import (bank_gather, tree_map,  # noqa: E402
 
 NUM_LEVELS, NUM_ENVS, T = 1024, 4096, 8  # procgen2_tpu/tools/bench_cli.py:18
 CPU_ENVS = 8
+MAZE_LEVELS, MAZE_ENVS = 2048, 8192  # procgen2_tpu/bench.py:31, the headline
 EDGE_ENVS = 257  # envs of the edge cases of phase 3
 # H100 SXM data sheet peaks (at 700 W): device memory, and f32 outside the
 # tensor cores. The sheet's 67 TFLOP/s counts a fused multiply-add as two
@@ -859,6 +881,43 @@ def place_jumper_lanes(gs, n):
     return dataclasses.replace(gs, pos=pos, vel=vel), lanes
 
 
+def place_chaser_lanes(gs):
+    """Of a chaser State: lane 0 with every pellet eaten and every orb
+    taken (nothing left: +10, done) and lane 1 with its first enemy
+    hatched on the agent while nothing is eaten (death, 0). Both take a
+    first action that does not move (`hold_first_action`), so lane 1
+    collects nothing as it dies. Returns (state, lanes)."""
+    points, orbs = gs.point_grid.clone(), gs.orb_taken.clone()
+    points[0] = False
+    orbs[0] = True
+    mob_pos, hatch = gs.mob_pos.clone(), gs.hatch_timer.clone()
+    eat = gs.eat_timer.clone()
+    mob_pos[1, 0] = gs.pos[1]
+    hatch[1, 0] = chaser.HATCH_TIME
+    eat[1] = 0.0
+    return dataclasses.replace(gs, point_grid=points, orb_taken=orbs,
+                               mob_pos=mob_pos, hatch_timer=hatch,
+                               eat_timer=eat), [0, 1]
+
+
+def place_maze_lanes(gs, cfg):
+    """Of a maze State: lane 0's agent on its goal (+10 with a first
+    action that does not move, `hold_first_action`) and lane 1 at its
+    last step before the timeout (terminated with 0: its start is never
+    the goal). Returns (state, lanes)."""
+    pos, t = gs.pos.clone(), gs.t.clone()
+    pos[0] = gs.level.goal_pos[0]
+    t[1] = cfg.timeout - 1
+    return dataclasses.replace(gs, pos=pos, t=t), [0, 1]
+
+
+def hold_first_action(actions, lanes):
+    """`actions` [T, N] with the placed lanes' first action 4 (no move)."""
+    actions = actions.clone()
+    actions[0, lanes] = 4
+    return actions
+
+
 def wall_ms(fn, iters=5):
     """Mean host wall time of fn() in ms, device synchronised, after one
     warm-up call."""
@@ -875,8 +934,13 @@ def breakdown(env, bank, state, action, obs_buf, render_parts):
     """Where one env step's time goes: host wall ms of each part of
     `Environment.step` on the same state (the render's parts from
     `render_parts`), then the device kernels and summed device time of two
-    whole steps under torch.profiler."""
-    game, cfg, gs, n_levels = env.game, env.cfg, state.game, NUM_LEVELS
+    whole steps under torch.profiler, and the device's idle share of the
+    step (1 - device ms / (2 x the whole step's wall ms)). Returns
+    {"step_ms", "device_ms", "kernels", "idle"} (device numbers None
+    where the profiler saw no device events)."""
+    game, cfg, gs = env.game, env.cfg, state.game
+    n_levels = env._num_levels(bank)
+    n_envs = state.ep_length.shape[0]
     done = torch.zeros_like(state.ep_length, dtype=torch.bool)
     done[::7] = True
     k = prng.split(state.rng, 3)
@@ -891,7 +955,7 @@ def breakdown(env, bank, state, action, obs_buf, render_parts):
     parts = [
         ("env.step (whole step, render included)",
          lambda: env.step(bank, state, action)),
-        ("game step (physics, 4 sub-steps)",
+        ("game step (physics)",
          lambda: game.step(cfg, gs, action)),
         ("auto-reset: split + randint + gather + reset + select", auto_reset),
         ("  of which one randint draw",
@@ -900,10 +964,13 @@ def breakdown(env, bank, state, action, obs_buf, render_parts):
         ("hwc copy into the obs buffer",
          lambda: obs_buf[0].copy_(planar.permute(0, 2, 3, 1))),
     ]
-    log(f"{game.NAME} breakdown at {NUM_ENVS} envs (host wall ms per call, "
+    log(f"{game.NAME} breakdown at {n_envs} envs (host wall ms per call, "
         "mean of 5):")
+    times = {}
     for name, fn in parts:
-        log(f"  {name}: {wall_ms(fn):.3f} ms")
+        times[name] = wall_ms(fn)
+        log(f"  {name}: {times[name]:.3f} ms")
+    step_ms = times[parts[0][0]]
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -915,13 +982,26 @@ def breakdown(env, bank, state, action, obs_buf, render_parts):
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = dict(step_ms=step_ms, device_ms=None, kernels=None, idle=None)
     if kernels:
         dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        out.update(device_ms=dev_ms, kernels=len(kernels),
+                   idle=1.0 - dev_ms / (2 * step_ms))
         log(f"{game.NAME} profiler, 2 env steps: {len(kernels)} device "
-            f"kernels, {dev_ms:.3f} ms summed device time")
+            f"kernels, {dev_ms:.3f} ms summed device time; device idle "
+            f"{100 * out['idle']:.1f}% of 2 x {step_ms:.3f} ms")
+        by_name = {}
+        for e in kernels:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        for name, (n, us) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][1])[:4]:
+            log(f"  device time by kernel: {us / 1e3:.3f} ms in {n} "
+                f"launches of {name[:100]}")
     else:
         log(f"{game.NAME} profiler, 2 env steps: no device events (device "
             "time not measured)")
+    return out
 
 
 def same_tree(a, b, what):
@@ -933,31 +1013,37 @@ def same_tree(a, b, what):
                              f"shapes {bad}")
 
 
-def make_bank(env):
-    """generate_bank(NUM_LEVELS) twice from key(0): (bank, first call s,
-    second call s)."""
+def make_bank(env, n_levels=NUM_LEVELS):
+    """generate_bank(n_levels) twice from key(0): the second call's bank;
+    prints both calls' times and the second's levels/s."""
     times = []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        bank = env.generate_bank(pt.random.key(0, env.device), NUM_LEVELS)
+        bank = env.generate_bank(pt.random.key(0, env.device), n_levels)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    log(f"{env.game.NAME} generate_bank({NUM_LEVELS}): first call "
+    log(f"{env.game.NAME} generate_bank({n_levels}): first call "
         f"{times[0]:.3f} s, second {times[1]:.3f} s -> "
-        f"{NUM_LEVELS / times[1]:.1f} levels/s")
+        f"{n_levels / times[1]:.1f} levels/s")
     return bank
 
 
-def drive(env, bank, actions, obs_buf, place, *counters):
-    """The main path, twice: reset(NUM_ENVS), `place` the special lanes,
+KERNEL_WRAPPERS = (scene_kernel.scene_raw, scene_kernel.scene,
+                   stamp_kernel.composite, stamp_kernel.stamps)
+
+
+def drive(env, bank, actions, obs_buf, place, *counters, silent=(),
+          n_envs=NUM_ENVS):
+    """The main path, twice: reset(n_envs), `place` the special lanes,
     T steps writing obs into `obs_buf`. The first run warms up; the
-    `counters` (kernel wrappers) are set to 0 just before the second and
-    read just after, and each must have launched at least T + 1 times.
-    Returns ([state after each step], [(reward, done)], lanes,
-    [launches of each counter])."""
+    `counters` (kernel wrappers) and the `silent` ones are set to 0 just
+    before the second and read just after: each counter must have
+    launched at least T + 1 times, each silent one never. Returns
+    ([state after each step], [(reward, done)], lanes, [launches of each
+    counter])."""
     def run():
-        state, _ = env.reset(bank, pt.random.key(1, env.device), NUM_ENVS)
+        state, _ = env.reset(bank, pt.random.key(1, env.device), n_envs)
         gs, lanes = place(state.game)
         state = dataclasses.replace(state, game=gs)
         torch.cuda.synchronize()
@@ -973,28 +1059,32 @@ def drive(env, bank, actions, obs_buf, place, *counters):
 
     run()
     torch.cuda.synchronize()
-    for counter in counters:
+    for counter in counters + tuple(silent):
         counter.launches = 0
     states, out, lanes, step_s = run()
     launches = [counter.launches for counter in counters]
-    log(f"{env.game.NAME} main path: {T} steps x {NUM_ENVS} envs in "
-        f"{step_s:.4f} s -> {T * NUM_ENVS / step_s:.1f} env-steps/s (obs "
+    quiet = {c.__name__: c.launches for c in silent}
+    log(f"{env.game.NAME} main path: {T} steps x {n_envs} envs in "
+        f"{step_s:.4f} s -> {T * n_envs / step_s:.1f} env-steps/s (obs "
         f"written to the buffer); kernel launches "
-        f"{dict(zip((c.__name__ for c in counters), launches))}")
+        f"{dict(zip((c.__name__ for c in counters), launches)) | quiet}")
     for counter, n in zip(counters, launches):
         if n < T + 1:
             raise AssertionError(f"the {env.game.NAME} main path launched "
                                  f"{counter.__name__} {n} times, expected "
                                  f">= {T + 1}")
+    if any(quiet.values()):
+        raise AssertionError(f"the {env.game.NAME} main path launched a "
+                             f"kernel it does not run: {quiet}")
     return states, out, lanes, launches
 
 
-def check_outputs(obs_buf, out, allowed):
+def check_outputs(obs_buf, out, allowed, n_envs=NUM_ENVS):
     """Shapes, dtypes and reward values of a main-path run, and no
     constant frame. Returns (rewards [T, N], dones [T, N])."""
     rewards = torch.stack([r for r, _ in out])
     dones = torch.stack([d for _, d in out])
-    if obs_buf.shape != (T, NUM_ENVS, 64, 64, 3) or obs_buf.dtype != torch.uint8:
+    if obs_buf.shape != (T, n_envs, 64, 64, 3) or obs_buf.dtype != torch.uint8:
         raise AssertionError("obs buffer shape/dtype")
     if rewards.dtype != torch.float32 or dones.dtype != torch.bool:
         raise AssertionError("reward/termination dtypes")
@@ -1003,25 +1093,27 @@ def check_outputs(obs_buf, out, allowed):
     if not bool(torch.isin(rewards, torch.tensor(
             allowed, dtype=torch.float32, device=rewards.device)).all()):
         raise AssertionError(f"reward outside {allowed}")
-    per_frame = obs_buf.reshape(T * NUM_ENVS, -1).float().std(dim=1)
-    if bool((per_frame == 0).any()):
+    lo, hi = torch.aminmax(obs_buf.reshape(T * n_envs, -1), dim=1)
+    if bool((lo == hi).any()):
         raise AssertionError("a frame is constant")
     return rewards, dones
 
 
-def cpu_rerun(game, bank, actions, obs_buf, states, out, place, lanes):
-    """The first CPU_ENVS envs through the port on the CPU, from the same
-    keys and placement: bank, states, rewards, terminations and obs must
-    be identical at every step, auto-resets included."""
-    cenv = pt.make(game, device="cpu")
-    cbank = cenv.generate_bank(pt.random.key(0), NUM_LEVELS)
+def cpu_rerun(game, bank, actions, obs_buf, states, out, place, lanes,
+              steps=T, **cfg):
+    """The first CPU_ENVS envs through the port on the CPU (`make(game,
+    **cfg)`), from the same keys and placement: bank, states, rewards,
+    terminations and obs must be identical at each of `steps` steps,
+    auto-resets included."""
+    cenv = pt.make(game, device="cpu", **cfg)
+    cbank = cenv.generate_bank(pt.random.key(0), cenv._num_levels(bank))
     same_tree(bank, cbank, f"{game} level bank")
     cstate, _ = cenv.reset(cbank, pt.random.key(1), CPU_ENVS)
     cgs, clanes = place(cstate.game)
     if clanes != lanes:
         raise AssertionError(f"placed lanes differ: CPU {clanes}, GPU {lanes}")
     cstate = dataclasses.replace(cstate, game=cgs)
-    for t in range(T):
+    for t in range(steps):
         cstate, cts = cenv.step(cbank, cstate, actions[t, :CPU_ENVS].cpu())
         if not torch.equal(cts.obs, obs_buf[t, :CPU_ENVS].cpu()):
             raise AssertionError(f"{game} step {t}: CPU and GPU obs differ")
@@ -1456,7 +1548,212 @@ def jumper_path(actions):
     return b1_launches, b3_launches, err1, err3
 
 
+def lanes_restarted(states, dones, rewards, lanes, wants, fresh):
+    """Each placed lane ended on step 0 with its reward and restarted:
+    step counter 0, episode length 0, `fresh(game_state, lane)` true."""
+    g0 = states[0].game
+    for lane, want in zip(lanes, wants):
+        if not (bool(dones[0, lane]) and float(rewards[0, lane]) == want
+                and int(g0.t[lane]) == 0
+                and int(states[0].ep_length[lane]) == 0 and fresh(g0, lane)):
+            raise AssertionError(f"{g0.__module__} lane {lane} did not end "
+                                 f"its episode with {want} and restart on "
+                                 "step 0")
+
+
+def peak_gib():
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def chaser_rewards():
+    """Every reward a chaser step can give: +0.04 per pellet or orb (a
+    sub-step collects at most 8), +10 once nothing is left."""
+    d = torch.arange(9, dtype=torch.int32)
+    return tuple(sorted(set(chaser._reward(d, torch.ones_like(d)).tolist())
+                        | set(chaser._reward(d, torch.zeros_like(d)).tolist())))
+
+
+def chaser_kind_parts(cfg, gs, device):
+    """The render's parts of a chaser state as breakdown entries: the kind
+    field, the background, the three kind blends, the stamp group and the
+    rounding."""
+    R = chaser._render_tensors(cfg.mode, str(device))
+    G = chaser._kind_grid(gs)[:, R["t"]][:, :, R["t"]][:, None]
+    img = R["bg_bank"][gs.level.bg_index.long()].to(torch.bfloat16)
+    blend = compositor.blend_kind
+
+    def blends():
+        out = blend(img, G == chaser.WALL, *R["wall"])
+        out = blend(out, G == chaser.PELLET, *R["pellet"])
+        return blend(out, G == chaser.ORB, *R["orb"])
+
+    def stamp_group():
+        var, r0, c0, alive = chaser._stamp_slots(cfg, gs)
+        return compositor.composite_stamps(
+            img, R["bank"], var, torch.round(r0).to(torch.int32),
+            torch.round(c0).to(torch.int32), alives=alive)
+
+    final = stamp_group()
+    return [
+        ("kind field (kind grid + gather)",
+         lambda: chaser._kind_grid(gs)[:, R["t"]][:, :, R["t"]]),
+        ("background gather (bf16)",
+         lambda: R["bg_bank"][gs.level.bg_index.long()].to(torch.bfloat16)),
+        ("3 kind blends (bf16 ops)", blends),
+        ("stamp group (slots, matmul semantics, K = 6)", stamp_group),
+        ("round / clip / uint8",
+         lambda: torch.clamp(torch.round(final), 0, 255).to(torch.uint8)),
+    ]
+
+
+def chaser_path(actions):
+    """Chaser's main path at its default Config (easy, 11 x 11), its
+    checks (no kernel launched: its render is a kind field and one stamp
+    group off the kernel path), the CPU re-run, and the breakdown."""
+    torch.cuda.reset_peak_memory_stats()
+    env = pt.make("chaser")
+    bank = make_bank(env)
+    obs_buf = torch.empty((T, NUM_ENVS, 64, 64, 3), dtype=torch.uint8,
+                          device=env.device)
+    actions = hold_first_action(actions, [0, 1])
+    states, out, lanes, _ = drive(env, bank, actions, obs_buf,
+                                  place_chaser_lanes, silent=KERNEL_WRAPPERS)
+    peak = peak_gib()
+    rewards, dones = check_outputs(obs_buf, out, chaser_rewards())
+    lanes_restarted(states, dones, rewards, lanes, (10.0, 0.0), lambda g, i: (
+        torch.equal(g.pos[i], g.level.agent_pos[i])
+        and torch.equal(g.point_grid[i], g.level.point_grid0[i])))
+    log(f"chaser checks: obs {tuple(obs_buf.shape)} uint8 mean "
+        f"{float(obs_buf.float().mean()):.3f}; rewards of 10 or more: "
+        f"{int((rewards >= 10).sum())}, pellets or orbs collected: "
+        f"{int(((rewards % 10) > 0).sum())}; terminations: "
+        f"{int(dones.sum())}; completion lane {lanes[0]} ended with 10, "
+        f"death lane {lanes[1]} with 0, both restarted on step 0; peak "
+        f"device memory {peak:.3f} GiB")
+    cpu_rerun("chaser", bank, actions, obs_buf, states, out,
+              place_chaser_lanes, lanes)
+    log(f"chaser CPU re-run of the first {CPU_ENVS} envs: bank, states, "
+        f"rewards, terminations and obs identical at every step "
+        f"({int(dones[:, :CPU_ENVS].sum())} auto-resets)")
+
+    parts = chaser_kind_parts(env.cfg, states[-1].game, env.device)
+    numbers = breakdown(env, bank, states[-1], actions[-1], obs_buf, parts)
+    return dict(numbers, peak_gib=peak)
+
+
+def maze_kind_parts(cfg, gs, device):
+    """The render's parts of a maze state as breakdown entries: the kind
+    field, the background, the four kind blends, and the rounding."""
+    R = maze._render_tensors(cfg.mode, str(device))
+    G = maze._kind_field(gs, R)
+    img = R["bg_bank"][gs.level.bg_index.long()].to(torch.bfloat16)
+    blend = compositor.blend_kind
+
+    def blends():
+        out = blend(img, G == maze.WALL, *R["wall"])
+        out = blend(out, (G == maze.CHEESE) | (G >= maze.MOUSE_ON_CHEESE),
+                    *R["cheese"])
+        out = blend(out, (G == maze.MOUSE) | (G == maze.MOUSE_ON_CHEESE),
+                    *R["mouse"])
+        return blend(out, (G == maze.MOUSE_FLIP)
+                     | (G == maze.MOUSE_FLIP_ON_CHEESE), *R["mouse_flip"])
+
+    bf = blends()
+    return [
+        ("kind field (kind grid + gather)", lambda: maze._kind_field(gs, R)),
+        ("background gather (bf16)",
+         lambda: R["bg_bank"][gs.level.bg_index.long()].to(torch.bfloat16)),
+        ("4 kind blends (bf16 ops)", blends),
+        ("round / clip / uint8",
+         lambda: torch.clamp(torch.round(bf), 0, 255).to(torch.uint8)),
+    ]
+
+
+def maze_path(dev):
+    """Maze's main path at the bench's shape (procgen2_tpu/bench.py:31:
+    easy, 2048 levels, 8192 envs, T = 8), its checks (no kernel launched:
+    its render is a kind field), the CPU re-run, and the breakdown."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    actions = hold_first_action(torch.randint(
+        0, maze.NUM_ACTIONS, (T, MAZE_ENVS), generator=g, device=dev,
+        dtype=torch.int32), [0, 1])
+    torch.cuda.reset_peak_memory_stats()
+    env = pt.make("maze", mode="easy")
+    bank = make_bank(env, MAZE_LEVELS)
+    obs_buf = torch.empty((T, MAZE_ENVS, 64, 64, 3), dtype=torch.uint8,
+                          device=env.device)
+
+    def place(gs):
+        return place_maze_lanes(gs, env.cfg)
+
+    states, out, lanes, _ = drive(env, bank, actions, obs_buf, place,
+                                  silent=KERNEL_WRAPPERS, n_envs=MAZE_ENVS)
+    peak = peak_gib()
+    rewards, dones = check_outputs(obs_buf, out, (0.0, 10.0), MAZE_ENVS)
+    lanes_restarted(states, dones, rewards, lanes, (10.0, 0.0), lambda g, i: (
+        torch.equal(g.pos[i], g.level.agent_pos[i])))
+    log(f"maze checks: obs {tuple(obs_buf.shape)} uint8 mean "
+        f"{float(obs_buf.float().mean()):.3f}; rewards of 10: "
+        f"{int((rewards == 10).sum())}; terminations: {int(dones.sum())}; "
+        f"goal lane {lanes[0]} ended with 10, timeout lane {lanes[1]} "
+        f"with 0, both restarted on step 0; peak device memory "
+        f"{peak:.3f} GiB")
+    cpu_rerun("maze", bank, actions, obs_buf, states, out, place, lanes,
+              mode="easy")
+    log(f"maze CPU re-run of the first {CPU_ENVS} envs: bank, states, "
+        f"rewards, terminations and obs identical at every step "
+        f"({int(dones[:, :CPU_ENVS].sum())} auto-resets)")
+    parts = maze_kind_parts(env.cfg, states[-1].game, env.device)
+    numbers = breakdown(env, bank, states[-1], actions[-1], obs_buf, parts)
+    return dict(numbers, peak_gib=peak)
+
+
+def maze_modes_path(dev):
+    """Maze hard (the default Config, 25 x 25) and memory (31 x 31 under
+    the agent-centred camera): a 256-level bank, reset(NUM_ENVS), 2 steps
+    with the placed lanes, no kernel launched, and the CPU re-run of the
+    first 8 envs."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    actions = hold_first_action(torch.randint(
+        0, maze.NUM_ACTIONS, (2, NUM_ENVS), generator=g, device=dev,
+        dtype=torch.int32), [0, 1])
+    for mode in ("hard", "memory"):
+        env = pt.make("maze", mode=mode)
+        bank = env.generate_bank(pt.random.key(0, env.device), 256)
+        state, _ = env.reset(bank, pt.random.key(1, env.device), NUM_ENVS)
+
+        def place(gs):
+            return place_maze_lanes(gs, env.cfg)
+
+        gs, lanes = place(state.game)
+        state = dataclasses.replace(state, game=gs)
+        for w in KERNEL_WRAPPERS:
+            w.launches = 0
+        states, out, obs = [], [], torch.empty(
+            (2, NUM_ENVS, 64, 64, 3), dtype=torch.uint8, device=env.device)
+        for t in range(2):
+            state, ts = env.step(bank, state, actions[t])
+            obs[t].copy_(ts.obs)
+            states.append(state)
+            out.append((ts.reward, ts.terminated))
+        if any(w.launches for w in KERNEL_WRAPPERS):
+            raise AssertionError(f"maze {mode} launched a kernel")
+        rewards = torch.stack([r for r, _ in out])
+        dones = torch.stack([d for _, d in out])
+        lanes_restarted(states, dones, rewards, lanes, (10.0, 0.0),
+                        lambda g, i: True)
+        cpu_rerun("maze", bank, actions, obs, states, out, place, lanes,
+                  steps=2, mode=mode)
+        log(f"maze {mode}: 256 levels, {NUM_ENVS} envs, 2 steps, no kernel "
+            f"launched; obs mean {float(obs.float().mean()):.3f}; both "
+            f"placed lanes restarted; the CPU re-run of the first "
+            f"{CPU_ENVS} envs identical at both steps")
+
+
 def main():
+    t_start = time.perf_counter()
     # ---- 1. device ----
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
@@ -1518,8 +1815,17 @@ def main():
     cave_launches, err_c = caveflyer_path(actions)
     # ---- 13, 14. jumper: main path, B1 and B3, breakdown ----
     jump_b1, jump_b3, err_j1, err_j3 = jumper_path(actions)
+    # ---- 15, 16. chaser: main path (no kernel), breakdown ----
+    chase = chaser_path(actions)
+    # ---- 17, 18. maze at the bench's shape, then hard and memory ----
+    mz = maze_path(dev)
+    maze_modes_path(dev)
+    for name, nb in (("chaser", chase), ("maze", mz)):
+        log(f"{name} summary: step {nb['step_ms']:.3f} ms wall, device "
+            f"{nb['device_ms']} ms per 2 steps, idle share {nb['idle']}, "
+            f"peak device memory {nb['peak_gib']:.3f} GiB")
 
-    # ---- 15. result ----
+    # ---- 19. result ----
     # the main paths that run B1: coinrun, climber, caveflyer and jumper;
     # B3: bossfight and jumper
     scene["launches"] += climber_launches + cave_launches + jump_b1
@@ -1529,6 +1835,7 @@ def main():
     stamp["max_abs_err"] = max(stamp["max_abs_err"], serr_r, err_j3)
     sums["max_abs_err"] = max(sums["max_abs_err"], err4_r)
     field["max_abs_err"] = max(field["max_abs_err"], err5_r)
+    log(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [scene, stamp, sums, field]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,15 +4,15 @@ PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
 The port is a package beside the JAX one, which stays as its reference.
 It never imports jax or anything of `procgen2_tpu`, and keeps its own
 copies of the numpy asset modules (render/atlas.py, render/phases.py).
-Games ported so far: see GAMES. Entry points run on the card unless the
-caller asks for the CPU.
+All seven games are ported (GAMES). Entry points run on the card unless
+the caller asks for the CPU.
 
-Quick start:
+Quick start, the bench's maze shape:
     import procgen2_tpu_torch as pt
-    env = pt.make("coinrun")  # device="cuda" by default
-    bank = env.generate_bank(pt.random.key(0, env.device), num_levels=1024)
-    state, ts = env.reset(bank, pt.random.key(1, env.device), num_envs=4096)
-    state, ts = env.step(bank, state, actions)  # ts.obs uint8 [4096, 64, 64, 3]
+    env = pt.make("maze", mode="easy")  # device="cuda" by default
+    bank = env.generate_bank(pt.random.key(0, env.device), num_levels=2048)
+    state, ts = env.reset(bank, pt.random.key(1, env.device), num_envs=8192)
+    state, ts = env.step(bank, state, actions)  # ts.obs uint8 [8192, 64, 64, 3]
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from .core.env import Environment, EnvState, TimeStep
 
 __version__ = "0.1.0"
 
-GAMES = ("coinrun", "bossfight", "climber", "caveflyer", "jumper")
+GAMES = ("coinrun", "bossfight", "climber", "caveflyer", "jumper", "chaser",
+         "maze")
 
 
 def make(game: str, device="cuda", **config) -> Environment:

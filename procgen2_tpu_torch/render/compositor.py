@@ -1,6 +1,14 @@
 """Compositor pieces of the port (procgen2_tpu/render/compositor.py):
 the stamp banks and pixel-snapped stamp groups that the scene kernel and
-the stamp kernels blend or sum.
+the stamp kernels blend or sum, and the kind-field helpers of the fixed
+and cell-quantized cameras (maze, chaser).
+
+The JAX package samples textures and kind grids with bf16 one-hot
+matmuls (`_onehot`, `_sep_sample`, `draw_background_batch`): every output
+element has exactly one nonzero product, a 0/1 selector times a texel
+<= 255 or a kind <= 6, so the product is exact. Here they are index
+gathers, with the `valid` masks as zeroed rows: the same values on every
+device, without a matmul.
 
 A stamp group of patch size P and K slots is drawn with one of two
 semantics, chosen per (P, K) by `stamp_kernel_ok` as the reference
@@ -20,9 +28,91 @@ import torch
 
 from .. import random as prng
 from . import stamp_kernel
+from .atlas import SPRITE_SIZE
 
 OBS = 64  # observation width/height, games/maze/maze.cpp:26-27
+S = SPRITE_SIZE
 _BF16 = torch.bfloat16
+
+
+def camera_coords(ppu, cam_x, cam_y):
+    """Separable world coords of the obs pixel centres under a camera at
+    (cam_x, cam_y), ppu obs pixels per world unit: (wx, wy) f32
+    [..., OBS], cam + c / ppu with c = arange(OBS) + 0.5 - OBS/2 (the JAX
+    package's `camera_coords`). cam_x, cam_y: f32 tensors of any batch
+    shape. The offsets c / ppu are a true f32 division taken on the CPU
+    (CUDA divides by a host scalar as a multiply by its reciprocal), so
+    every device gets the same coords."""
+    c = np.arange(OBS, dtype=np.float32) + np.float32(0.5 - OBS / 2)
+    offs = torch.from_numpy(c / np.float32(ppu))
+    offs_x = offs.to(cam_x.device)
+    offs_y = offs.to(cam_y.device)
+    return cam_x[..., None] + offs_x, cam_y[..., None] + offs_y
+
+
+def texel_index(x, n):
+    """The index of fraction x in n texels, clip(int(x * n), 0, n - 1),
+    the int cast truncating toward zero (as `astype(int32)`), and
+    whether x lies in [0, 1): (int64, bool) of x's shape."""
+    return ((x * n).to(torch.int32).clamp(0, n - 1).long(),
+            (x >= 0) & (x < 1))
+
+
+def sep_sample(tex, rows, cols, row_ok=None, col_ok=None):
+    """tex [..., H, W] sampled at rows [R] x cols [C] -> [..., R, C],
+    zero in a row or column that is not ok: `_sep_sample(tex,
+    _onehot(rows, H, row_ok), _onehot(cols, W, col_ok))` of the JAX
+    package, as a gather."""
+    out = tex[..., rows, :][..., cols]
+    if row_ok is not None:
+        out = out * row_ok[:, None].to(out.dtype)
+    if col_ok is not None:
+        out = out * col_ok.to(out.dtype)
+    return out
+
+
+def draw_background_batch(bgs, bg_index, wx_b, wy_b):
+    """Per-env (moving) cameras' backgrounds, the JAX package's
+    `draw_background_batch` as maze calls it: background `bg_index` of
+    bgs u8 [B, 3, H, W] (env-major, on the device) spans 64 world units
+    from the origin, sampled nearest at the pixel centres wx_b / wy_b f32
+    [N, OBS], over a black clear colour: bf16 [N, 3, OBS, OBS], 0 off the
+    background. (The JAX package's base * (1 - a) + rgb * a, each op
+    rounded, gives these values for the black base.) XLA CPU divides by
+    64 as a multiply by its reciprocal, which is exact."""
+    _, _, H, W = bgs.shape
+    N = bg_index.shape[0]
+    ui, in_u = texel_index(wx_b * (1 / 64.0), W)  # [N, OBS]
+    vi, in_v = texel_index(wy_b * (1 / 64.0), H)
+    flat = (vi[:, :, None] * W + ui[:, None, :]).reshape(N, 1, -1)
+    tex = bgs[bg_index.long()].reshape(N, 3, H * W)
+    ok = in_v[:, :, None] & in_u[:, None, :]  # [N, OBS, OBS]
+    rgb = tex.gather(2, flat.expand(N, 3, flat.shape[-1])).reshape(
+        N, 3, ok.shape[1], ok.shape[2]).to(_BF16)
+    return rgb * ok[:, None].to(_BF16)
+
+
+def blend_kind(img, mask, kimg_rgb, kimg_a):
+    """One kind layer over img bf16 [N, 3, OBS, OBS], as the JAX package's
+    kind-field renders blend (maze.py:341-349, chaser.py:697-707):
+    a = bf16(mask) * kimg_a, then img + a * (kimg_rgb - img), every bf16
+    op rounded on its own. mask bool [N, 1, OBS, OBS]; kimg_rgb bf16
+    [3, OBS, OBS]; kimg_a bf16 [OBS, OBS], the kind image's alpha times
+    bf16(1/255) (a constant product, rounded to bf16)."""
+    a = mask.to(_BF16) * kimg_a
+    return img + a * (kimg_rgb - img)
+
+
+def kind_image(tex, rows, cols, row_ok=None, col_ok=None):
+    """A kind's texel image under the fixed camera: tex u8 [4, S, S]
+    (planar RGBA) sampled by `sep_sample` in bf16, split into (rgb bf16
+    [3, R, C], alpha * bf16(1/255) bf16 [R, C]) as `blend_kind` takes
+    them."""
+    k = sep_sample(torch.from_numpy(np.ascontiguousarray(tex)).to(_BF16),
+                   torch.as_tensor(rows).long(), torch.as_tensor(cols).long(),
+                   None if row_ok is None else torch.as_tensor(row_ok),
+                   None if col_ok is None else torch.as_tensor(col_ok))
+    return k[:3], k[3] * torch.tensor(1 / 255.0, dtype=_BF16)
 
 
 def _premultiply_bank(pbank) -> torch.Tensor:

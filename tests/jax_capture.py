@@ -8,7 +8,11 @@ from the render itself, not from a jit of the expression alone.
 TPU path with the scene kernel and the stamp kernel replaced by stand-ins
 that hand their inputs out of the jitted function (the scene kernel's
 stamp groups, the stamp kernel's last call), and with `jnp.round` in the
-game's module handing out every value it rounds, in call order."""
+game's module handing out every value it rounds, in call order.
+`onehot_inputs(fn, *args)` runs `fn` jitted with the compositor's
+`_onehot` handing out the selector indices (and masks) it takes, in call
+order: the kind-field renders of maze and chaser build their constant
+tables from them."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +24,8 @@ from procgen2_tpu.render import stamp_kernel as jstk
 
 
 def render_inputs(game, cfg, state):
-    """dict(groups=[(var, scale, r0, c0) of each scene-kernel group],
+    """dict(groups=[(var, scale, r0, c0) of each scene-kernel group] or
+    None where the render calls no scene kernel,
     composite=(var, scale, r0, c0) of the last stamp-kernel call or None,
     rounded=[every value `jnp.round` took]), numpy; `state` a JAX State
     (keys wrapped)."""
@@ -47,7 +52,7 @@ def render_inputs(game, cfg, state):
     def capture(s):
         game.observe_batch(cfg, s)
         # the render's own output rounds last: leave it out
-        return dict(groups=out["groups"], composite=out["composite"],
+        return dict(groups=out.get("groups"), composite=out["composite"],
                     rounded=out["rounded"][:-1])
 
     with pytest.MonkeyPatch.context() as mp:
@@ -57,3 +62,27 @@ def render_inputs(game, cfg, state):
         mp.setattr(jstk, "composite_tpu", composite)
         got = capture(state)
     return jax.tree.map(np.asarray, got)
+
+
+def onehot_inputs(fn, *args):
+    """[(idx, n, valid)] of every `compositor._onehot(idx, n, valid)` call
+    that `fn(*args)` makes, jitted, in call order, numpy (valid None
+    where the call gives none)."""
+    calls = []
+    onehot = jC._onehot
+
+    def handing_out(idx, n, valid=None):
+        calls.append((idx, n, valid))
+        return onehot(idx, n, valid)
+
+    @jax.jit
+    def capture(*a):
+        calls.clear()
+        fn(*a)
+        return [(i, v) for i, _, v in calls]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jC, "_onehot", handing_out)
+        got = capture(*args)
+    return [(np.asarray(i), n, None if v is None else np.asarray(v))
+            for (i, v), (_, n, _) in zip(got, calls)]

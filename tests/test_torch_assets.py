@@ -1,6 +1,6 @@
 """The port's own asset modules (procgen2_tpu_torch/render/atlas.py and
 phases.py, numpy copies cut to what coinrun, bossfight, climber,
-caveflyer and jumper draw)
+caveflyer, jumper, chaser and maze draw)
 against the JAX package's: every bank these games build must be
 identical, array for array, and so must the asset tables, phase tables,
 window spans and expansion tables they come from."""
@@ -9,16 +9,20 @@ import pytest
 
 from procgen2_tpu.games import bossfight as jboss
 from procgen2_tpu.games import caveflyer as jcave
+from procgen2_tpu.games import chaser as jchase
 from procgen2_tpu.games import climber as jclimb
 from procgen2_tpu.games import coinrun as jcoin
 from procgen2_tpu.games import jumper as jjump
+from procgen2_tpu.games import maze as jmaze
 from procgen2_tpu.render import atlas as jatlas
 from procgen2_tpu.render import phases as jphases
 from procgen2_tpu_torch.games import bossfight as tboss
 from procgen2_tpu_torch.games import caveflyer as tcave
+from procgen2_tpu_torch.games import chaser as tchase
 from procgen2_tpu_torch.games import climber as tclimb
 from procgen2_tpu_torch.games import coinrun as tcoin
 from procgen2_tpu_torch.games import jumper as tjump
+from procgen2_tpu_torch.games import maze as tmaze
 from procgen2_tpu_torch.render import atlas as tatlas
 from procgen2_tpu_torch.render import phases as tphases
 
@@ -102,6 +106,31 @@ def test_jumper_sprites_identical():
         same(jatlas.sprite_rgba(name), tatlas.sprite_rgba(name), name)
 
 
+def test_maze_assets_identical():
+    """Maze's atlas (the sand wall, cheese and mouse) and its 9 topdown
+    backgrounds."""
+    same(jmaze._assets()[:3], tmaze._assets(), "maze._assets")
+
+
+@pytest.mark.parametrize("mode", ["easy", "hard", "extreme"])
+def test_chaser_banks_identical(mode):
+    """Chaser's atlas (stone wall, pellet, crystal, egg, the three flyer
+    frames, the fleeing walker, the floater) and backgrounds, and the
+    pixel bank of its stamp group at the mode's ppu
+    (64/11, 64/13, 64/19: P = 8, 7, 6)."""
+    same_kept(jchase._assets(), tchase._assets(), "chaser._assets")
+    ppu = 64 / tchase.Config(mode=mode).world_dim
+    same(jchase._stamp_banks(ppu), tchase._stamp_banks(ppu),
+         f"chaser._stamp_banks({ppu})")
+
+
+def test_maze_and_chaser_sprites_identical():
+    for name in ("maze_wall", "cheese", "mouse", "stone_wall",
+                 "chaser_point", "crystal", "egg_spikey", "flyer0", "flyer1",
+                 "flyer2", "walker_flee", "floater"):
+        same(jatlas.sprite_rgba(name), tatlas.sprite_rgba(name), name)
+
+
 def test_climber_merged_bank_identical():
     """The render's one stamp group bank, as climber.py:581-582 builds it."""
     banks = jclimb._stamp_banks()
@@ -137,7 +166,8 @@ def test_tables_identical():
                  tphases.phase_tables(ppu, 64, qp), f"phase_tables({ppu}, {qp})")
 
 
-@pytest.mark.parametrize("kind,n", [("sky", 49), ("space", 13)])
+@pytest.mark.parametrize("kind,n", [("sky", 49), ("space", 13),
+                                    ("topdown", 9)])
 def test_backgrounds_identical(kind, n):
     same(jatlas.build_backgrounds(kind, n), tatlas.build_backgrounds(kind, n),
          kind)
@@ -157,4 +187,6 @@ def test_rasterized_patches_identical():
 
 def test_unknown_sprite_raises():
     with pytest.raises(KeyError):
-        tatlas.build_atlas(("maze_wall",))  # maze is not ported yet
+        jatlas.build_atlas(("no_such_sprite",))
+    with pytest.raises(KeyError):
+        tatlas.build_atlas(("no_such_sprite",))

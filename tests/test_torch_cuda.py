@@ -5,7 +5,8 @@ tables, B5 on odd kinds), stamp groups off the kernel path, the kernel
 wrappers' checks, threefry words, cos32/sin32 and atan2f on the card,
 B1 on jumper's scene and B3 on jumper's needle group (P = 32, K = 1) at
 every offset across the frame's edges, and coinrun, bossfight, climber,
-caveflyer and jumper on the card against the same games on the CPU.
+caveflyer, jumper, chaser and maze (every mode) on the card against the
+same games on the CPU, chaser and maze launching no kernel.
 
 They skip without a card. This file imports no jax, so it runs on a
 machine without it; there, skip the repo's conftest (which sets jax up):
@@ -763,3 +764,91 @@ def test_jumper_on_card_matches_cpu(dev):
         assert torch.equal(ra, rb) and torch.equal(da, db)
     for a, b in zip(cpu[3], gpu[3]):
         assert torch.equal(a, b)
+
+
+def _kind_field_run(game, dev_name, n, steps, place, **cfg):
+    """make(game) on `dev_name` (a bank of n levels, n envs, the lanes
+    placed by `place(state, env)`, `steps` steps whose placed lanes first
+    hold still), all on the CPU: (bank, states, rewards, frames, lanes,
+    launches of the four kernel wrappers)."""
+    wrappers = (sk.scene_raw, sk.scene, stk.composite, stk.stamps)
+    for w in wrappers:
+        w.launches = 0
+    env = pt.make(game, device=dev_name, **cfg)
+    bank = env.generate_bank(R.key(5, env.device), n)
+    state, ts = env.reset(bank, R.key(6, env.device), n)
+    gs, lanes = place(state.game, env)
+    state = dataclasses.replace(state, game=gs)
+    g = torch.Generator().manual_seed(0)
+    actions = chip_smoke.hold_first_action(torch.randint(
+        0, 15, (steps, n), generator=g, dtype=torch.int32), lanes)
+    frames, states, rewards = [ts.obs.cpu()], [], []
+    for t in range(steps):
+        state, ts = env.step(bank, state, actions[t].to(env.device))
+        frames.append(ts.obs.cpu())
+        states.append(tree_map(lambda x: x.cpu(), state))
+        rewards.append((ts.reward.cpu(), ts.terminated.cpu()))
+    return (tree_map(lambda x: x.cpu(), bank), states, rewards, frames, lanes,
+            [w.launches for w in wrappers])
+
+
+def _same_runs(cpu, gpu):
+    assert cpu[4] == gpu[4]
+    bad = []
+    for a, b in zip([cpu[0]] + cpu[1], [gpu[0]] + gpu[1]):
+        tree_map(lambda x, y: None if torch.equal(x, y)
+                 else bad.append(x.shape), a, b)
+    assert not bad, bad
+    for (ra, da), (rb, db) in zip(cpu[2], gpu[2]):
+        assert torch.equal(ra, rb) and torch.equal(da, db)
+    for a, b in zip(cpu[3], gpu[3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["easy", "hard", "extreme"])
+def test_chaser_on_card_matches_cpu(dev, mode):
+    """make("chaser") on the card against make(device="cpu"): the bank,
+    and with lane 0 left with nothing to collect (+10) and lane 1's agent
+    under a hatched enemy (death, 0), so that both end and auto-reset on
+    the card; 4 steps, every field, reward and obs pixel equal."""
+    def place(gs, env):
+        return chip_smoke.place_chaser_lanes(gs)
+
+    cpu, gpu = (_kind_field_run("chaser", d, 16, 4, place, mode=mode)
+                for d in ("cpu", "cuda"))
+    _same_runs(cpu, gpu)
+    (reward0, done0), state0 = gpu[2][0], gpu[1][0]
+    assert done0[gpu[4]].all() and reward0[gpu[4]].tolist() == [10.0, 0.0]
+    assert state0.game.t[gpu[4]].tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("mode", ["easy", "hard", "memory"])
+def test_maze_on_card_matches_cpu(dev, mode):
+    """make("maze") on the card against make(device="cpu"): the bank (the
+    per-level maze sizes on the card), and with lane 0 on its goal (+10)
+    and lane 1 at its last step (terminated with 0), so that both end and
+    auto-reset on the card; 4 steps, every field, reward and obs pixel
+    equal (memory mode's camera on the map centre, then on the agent)."""
+    def place(gs, env):
+        return chip_smoke.place_maze_lanes(gs, env.cfg)
+
+    cpu, gpu = (_kind_field_run("maze", d, 16, 4, place, mode=mode)
+                for d in ("cpu", "cuda"))
+    _same_runs(cpu, gpu)
+    (reward0, done0), state0 = gpu[2][0], gpu[1][0]
+    assert done0[gpu[4]].all() and reward0[gpu[4]].tolist() == [10.0, 0.0]
+    assert state0.game.t[gpu[4]].tolist() == [0, 0]
+
+
+def test_chaser_and_maze_launch_no_kernel(dev):
+    """Neither game's main path reaches a TPU kernel in the JAX package,
+    so neither launches one here: no scene, stamp or stamp-sum kernel on
+    the card over reset and 4 steps (chaser's stamp group is off the
+    kernel path, `compositor.stamp_kernel_ok`)."""
+    runs = [_kind_field_run("chaser", "cuda", 64, 4,
+                            lambda gs, env: chip_smoke.place_chaser_lanes(gs)),
+            _kind_field_run("maze", "cuda", 64, 4,
+                            lambda gs, env: chip_smoke.place_maze_lanes(
+                                gs, env.cfg), mode="easy")]
+    for r in runs:
+        assert r[5] == [0, 0, 0, 0]

@@ -220,8 +220,9 @@ def test_spaces(run):
 
 
 def test_make_rejects_what_is_not_ported():
+    assert "no_such_game" not in pg.GAMES
     with pytest.raises(ValueError, match="coinrun"):
-        pt.make("maze", device="cpu")
+        pt.make("no_such_game", device="cpu")
     with pytest.raises(ValueError):
         pt.make("coinrun", device="cpu", obs_format="nhwc")
     if not torch.cuda.is_available():
@@ -239,7 +240,8 @@ def test_make_rejects_what_is_not_ported():
 def test_port_imports_no_jax():
     """The port runs where jax is not installed, and uses nothing of the
     JAX package: importing it and running a step of every ported game
-    (jumper's with its maze generator and atan2f),
+    (jumper's with its maze generator and atan2f; chaser's and maze's
+    kind-field renders),
     `compositor.stamps_from_pixel_bank` and `scene_kernel.scene` loads
     neither jax nor flax nor the JAX package, and no module in
     sys.modules comes from a file under procgen2_tpu/ (which a load by
@@ -260,7 +262,8 @@ def test_port_imports_no_jax():
         sys.meta_path.insert(0, Blocker())
         import torch
         import procgen2_tpu_torch as pt
-        for game in ("coinrun", "bossfight", "caveflyer", "jumper", "climber"):
+        for game in ("coinrun", "bossfight", "caveflyer", "jumper", "chaser",
+                     "maze", "climber"):
             env = pt.make(game, device="cpu")
             bank = env.generate_bank(pt.random.key(0), 2)
             state, ts = env.reset(bank, pt.random.key(1), 2)
