@@ -3,7 +3,9 @@ kernels from this checkout, holds each against its plain torch version,
 drives the main paths of coinrun, bossfight, climber, caveflyer, jumper,
 chaser and maze (maze at the bench's 8192 envs) at full width, drives
 the render entry points of the stamp-sum and expanded-field scene kernels
-on climber's real inputs, and checks the results.
+on climber's real inputs, the exact-camera renders (scene_phases=0) of
+coinrun, climber, caveflyer and jumper, and every game's window render
+(Environment.render at 512 px), and checks the results.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -116,9 +118,22 @@ Phases (any failure raises, so the exit code is non-zero and the final
      re-run and peak device memory; where the time goes, as in 16 (the 4
      kind blends); then maze hard and memory (the agent-centred camera):
      256 levels, reset(4096), 2 steps, no kernel, the CPU re-run of 8 envs;
- 18. the script's total wall time;
- 19. prints the kernels' JSON line (with each kernel's least possible
-     time on this card, `bound_ms`), then the `ok` line last.
+ 19. the exact-camera main paths (scene_phases=0) of coinrun, climber,
+     caveflyer and jumper: make(game, scene_phases=0) ->
+     generate_bank(1024) -> reset(4096) -> the lanes of its default
+     phase -> 8 steps into the uint8 buffer; the stamp kernel (B3) must
+     launch once per kernel-path stamp group per render (coinrun 2,
+     climber 1, caveflyer 4, jumper 1; the other groups take the matmul
+     semantics) and no other kernel; the placed lanes end and restart;
+     the first 8 envs are re-run on the CPU and must match at every step;
+     B3 is held bitwise against its plain version on every group of the
+     last render and timed against its bound; the render's host wall time;
+ 20. Environment.render(state, 512, env_index) of every game on the card
+     (env 0 and 1 of 16, after 6 steps): no kernel launched, bitwise
+     equal to the port's render of the same state on the CPU; wall time;
+ 21. the script's total wall time, then the kernels' JSON line (with
+     each kernel's least possible time on this card, `bound_ms`), then
+     the `ok` line last.
 """
 from __future__ import annotations
 
@@ -1752,6 +1767,148 @@ def maze_modes_path(dev):
             f"{CPU_ENVS} envs identical at both steps")
 
 
+# The exact-camera main paths (scene_phases=0): each game's placement of
+# its default-camera phase, the rewards a step can give, the placed lanes'
+# first rewards (coinrun: lane 0 on its coin; the hazard lanes vary), and
+# the stamp groups per render on the stamp kernel's path (B3, one launch
+# each; `compositor.stamp_kernel_ok`).
+EXACT_GAMES = {
+    "coinrun": (lambda gs: place_on_hazards(gs, CPU_ENVS), (0.0, 10.0),
+                (10.0,), 2),
+    "climber": (lambda gs: place_climber_lanes(gs, CPU_ENVS),
+                (0.0, 1.0, 2.0, 10.0, 11.0, 12.0), (0.0, 11.0), 1),
+    "caveflyer": (lambda gs: place_caveflyer_lanes(gs, CPU_ENVS),
+                  caveflyer_rewards(), (10.0, 0.0), 4),
+    "jumper": (lambda gs: place_jumper_lanes(gs, CPU_ENVS), (0.0, 10.0),
+               (10.0, 0.0), 1),
+}
+
+
+def exact_render_calls(game, cfg, gs):
+    """[(frame, groups)] of every stamp-kernel call of one exact render of
+    the state gs (`observe_batch` with scene_phases=0), in order."""
+    calls = []
+    orig = stamp_kernel.composite
+
+    def recording(img, groups):
+        calls.append((img, groups))
+        return orig(img, groups)
+    # the wrapper counts its launches on the module's `composite`
+    recording.launches = orig.launches
+    stamp_kernel.composite = recording
+    try:
+        game.observe_batch(cfg, gs)
+    finally:
+        stamp_kernel.composite = orig
+        orig.launches = recording.launches
+    return calls
+
+
+def exact_path(name, actions):
+    """One game's exact-camera main path: make(name, scene_phases=0) ->
+    generate_bank(1024) -> reset(4096) -> its default phase's lanes
+    placed -> T steps into the uint8 buffer. B3 must launch once per
+    kernel-path stamp group per render, and nothing else; the placed
+    lanes end on step 0 and restart; the first 8 envs are re-run on the
+    CPU; then B3 on every stamp group of the last state's render, held
+    against its plain version and timed against its bound, and the host
+    wall time of the whole render. Returns B3's launches and numbers."""
+    place, allowed, wants, per_render = EXACT_GAMES[name]
+    env = pt.make(name, scene_phases=0)
+    bank = make_bank(env)
+    obs_buf = torch.empty((T, NUM_ENVS, 64, 64, 3), dtype=torch.uint8,
+                          device=env.device)
+    silent = tuple(w for w in KERNEL_WRAPPERS if w is not stamp_kernel.composite)
+    states, out, lanes, [launches] = drive(env, bank, actions, obs_buf, place,
+                                           stamp_kernel.composite,
+                                           silent=silent)
+    if launches != per_render * (T + 1):
+        raise AssertionError(f"{name} exact path launched B3 {launches} "
+                             f"times, expected {per_render} x {T + 1}")
+    rewards, dones = check_outputs(obs_buf, out, allowed)
+    lanes_restarted(states, dones, rewards,
+                    [0] if name == "coinrun" else lanes, wants,
+                    lambda g, i: True)
+    cpu_rerun(name, bank, actions, obs_buf, states, out, place, lanes,
+              scene_phases=0)
+    log(f"{name} exact path checks: obs mean "
+        f"{float(obs_buf.float().mean()):.3f}, terminations "
+        f"{int(dones.sum())}, placed lanes ended on step 0 and restarted; "
+        f"the CPU re-run of the first {CPU_ENVS} envs identical at every "
+        f"step ({int(dones[:, :CPU_ENVS].sum())} auto-resets)")
+
+    cfg, gs = env.cfg, states[-1].game
+    calls = exact_render_calls(env.game, cfg, gs)
+    if len(calls) != per_render:
+        raise AssertionError(f"{name} exact render made {len(calls)} B3 "
+                             f"calls, expected {per_render}")
+    err = ms = plain_ms = bound_ms = 0.0
+    for img, groups in calls:
+        e, m, p = stamps_vs_plain(img, groups, 20)
+        b, by = stamp_bound(img, groups)
+        err, ms, plain_ms, bound_ms = (max(err, e), ms + m, plain_ms + p,
+                                       bound_ms + b)
+        log(f"stamp kernel vs plain, {name} exact-path group (P, K) = "
+            f"{[(g[0].shape[-1], g[1].shape[1]) for g in groups]} "
+            f"N={NUM_ENVS}: bitwise equal; kernel {m:.4f} ms, plain "
+            f"{p:.4f} ms, bound {b:.4f} ms ({by}); stamp blends "
+            f"{stamp_blends(groups, 64)}")
+    render_ms = wall_ms(lambda: env.game.observe_batch(cfg, gs))
+    step_ms = wall_ms(lambda: env.step(bank, states[-1], actions[-1]))
+    log(f"{name} exact render at {NUM_ENVS} envs: host wall {render_ms:.3f} "
+        f"ms per render (env.step {step_ms:.3f} ms); B3 per render "
+        f"{ms:.4f} ms over {per_render} launches, bound {bound_ms:.4f} ms")
+    return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, render_ms=render_ms, step_ms=step_ms)
+
+
+def window_render_check(name, dev, n=16, steps=6, size=512):
+    """`Environment.render(state, size, env_index)` of one game on the
+    card, for env_index 0 and 1 of n envs after `steps` random steps: no
+    kernel launched, uint8 [size, size, 3] on the card, not constant, and
+    bitwise equal to the port's render of the same state on the CPU.
+    Returns the host wall ms of one render."""
+    env = pt.make(name)
+    bank = env.generate_bank(pt.random.key(0, env.device), 64)
+    state, _ = env.reset(bank, pt.random.key(1, env.device), n)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    for _ in range(steps):
+        state, _ = env.step(bank, state, torch.randint(
+            0, 15, (n,), generator=g, device=dev, dtype=torch.int32),
+            render=False)
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    frames = [env.render(state, size, i) for i in (0, 1)]
+    torch.cuda.synchronize()
+    if any(w.launches for w in KERNEL_WRAPPERS):
+        raise AssertionError(f"{name} window render launched a kernel")
+    cenv = pt.make(name, device="cpu")
+    cstate = tree_map(lambda x: x.cpu(), state)
+    for i, f in enumerate(frames):
+        if (f.shape != (size, size, 3) or f.dtype != torch.uint8
+                or f.device != env.device):
+            raise AssertionError(f"{name} window render: {f.shape} "
+                                 f"{f.dtype} {f.device}")
+        if int(f.max()) == int(f.min()):
+            raise AssertionError(f"{name} window render {i} is constant")
+        if not torch.equal(cenv.render(cstate, size, i), f.cpu()):
+            raise AssertionError(f"{name} window render {i}: card and CPU "
+                                 "differ")
+    return wall_ms(lambda: env.render(state, size, 0), iters=3)
+
+
+def window_renders(dev):
+    """`Environment.render` at 512 px for all seven games (see
+    `window_render_check`); logs each one's wall time."""
+    for name in pt.GAMES:
+        ms = window_render_check(name, dev)
+        log(f"{name} Environment.render(state, 512, i) on the card: "
+            f"uint8 [512, 512, 3], no kernel launched, bitwise equal to the "
+            f"CPU for env 0 and 1; host wall {ms:.3f} ms per render")
+
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device ----
@@ -1824,15 +1981,24 @@ def main():
         log(f"{name} summary: step {nb['step_ms']:.3f} ms wall, device "
             f"{nb['device_ms']} ms per 2 steps, idle share {nb['idle']}, "
             f"peak device memory {nb['peak_gib']:.3f} GiB")
+    # ---- 19. the exact-camera main paths (scene_phases=0), B3 on them ----
+    exact = {name: exact_path(name, actions) for name in EXACT_GAMES}
+    for name, ex in exact.items():
+        log(f"{name} exact summary: B3 launches {ex['launches']}, per render "
+            f"{ex['ms']:.4f} ms (bound {ex['bound_ms']:.4f} ms), render "
+            f"{ex['render_ms']:.3f} ms wall")
+    # ---- 20. Environment.render at 512 px, every game ----
+    window_renders(dev)
 
-    # ---- 19. result ----
+    # ---- 21. result ----
     # the main paths that run B1: coinrun, climber, caveflyer and jumper;
-    # B3: bossfight and jumper
+    # B3: bossfight and jumper, and the four exact-camera paths
     scene["launches"] += climber_launches + cave_launches + jump_b1
     scene["max_abs_err"] = max(scene["max_abs_err"], err_r, err1, err_c,
                                err_j1)
-    stamp["launches"] += jump_b3
-    stamp["max_abs_err"] = max(stamp["max_abs_err"], serr_r, err_j3)
+    stamp["launches"] += jump_b3 + sum(ex["launches"] for ex in exact.values())
+    stamp["max_abs_err"] = max(stamp["max_abs_err"], serr_r, err_j3,
+                               *(ex["err"] for ex in exact.values()))
     sums["max_abs_err"] = max(sums["max_abs_err"], err4_r)
     field["max_abs_err"] = max(field["max_abs_err"], err5_r)
     log(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s")

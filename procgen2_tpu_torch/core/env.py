@@ -13,6 +13,8 @@ A game module provides:
     reset(cfg, level, keys[N, 2])        -> State
     step(cfg, state, action[N])          -> (State, reward, terminated, info)
     observe_batch(cfg, state)            -> uint8 [N, 3, 64, 64]
+    observe(cfg, state, size)            -> uint8 [N, size, size, 3], the
+                                            exact render at any size
     obs_space(cfg), action_space(cfg)
 """
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Any
 import torch
 
 from .. import random as prng
-from ..utils.tree import bank_gather, tree_select
+from ..utils.tree import bank_gather, tree_map, tree_select
 
 OBS_KEY = "screen"  # the reference obs dict key, games/maze/maze.cpp:117
 
@@ -193,9 +195,15 @@ class Environment:
         return self._observe_batch(state.game)
 
     def render(self, state: EnvState, size: int = 512, env_index: int = 0):
-        raise NotImplementedError(
-            "window-resolution render needs the exact render paths: "
-            "ROADMAP A, 'exact and window-resolution render paths'")
+        """One env's scene re-rendered at window resolution, uint8
+        [size, size, 3] on the env's device, whatever `obs_format` is.
+
+        The reference renders every scene twice, the 64x64 obs and a
+        window surface (`cenv_render`, games/coinrun/coinrun.cpp:
+        393-411). Here the game's exact render (`observe`) draws env
+        `env_index` at `size`, its camera spanning the same world."""
+        one = tree_map(lambda x: x[env_index:env_index + 1], state.game)
+        return self.game.observe(self.cfg, one, int(size))[0]
 
     # ------------------------------------------------------------------
     # Spaces

@@ -12,13 +12,14 @@ episode runs; an agent hit by a boss bullet dies one sub-step late, as
 in the reference (common_systems.cpp:322-329 vs bossfight.cpp:311-320).
 
 Every function works on a batch: `generate` on a batch of keys [L, 2]
-(one level each), `reset`/`step`/`observe_batch` on a batch of envs. The
-random draws are the JAX package's, key for key (`..random`), and the
-arithmetic rounds where XLA CPU rounds: a multiply feeding an add whose
-product is inexact is one fused multiply-add there (`random._fma32`), and
-a division by a constant is a multiply by its f32 reciprocal. The bullet
-volley's cos/sin are XLA CPU's (glibc's cosf/sinf, `..trig`), not
-correctly rounded but the same bits on the CPU and the card.
+(one level each), `reset`/`step`/`observe_batch`/`observe` on a batch of
+envs. The random draws are the JAX package's, key for key (`..random`),
+and the arithmetic rounds where XLA CPU rounds: a multiply feeding an
+add whose product is inexact is one fused multiply-add there
+(`random._fma32`), and a division by a constant is a multiply by its f32
+reciprocal. The bullet volley's cos/sin are XLA CPU's (glibc's
+cosf/sinf, `..trig`), not correctly rounded but the same bits on the CPU
+and the card.
 
 The render is one launch of the stamp-over-frame kernel per
 `observe_batch`: four stamp groups (barriers + boss bullets, the boss
@@ -80,6 +81,7 @@ NUM_BGS = 13  # bossfight.cpp:54-67
 ROT_BINS = 16  # boss-bullet rotation variants in the stamp bank
 
 _PI = float(np.float32(math.pi))
+_HALF_PI = float(np.float32(math.pi * 0.5))  # the bullets draw rotated by +90 deg
 _F32 = torch.float32
 _I32 = torch.int32
 
@@ -165,10 +167,19 @@ class State:
 
 @functools.lru_cache(maxsize=None)
 def _assets():
-    """The 13 space backgrounds, planar u8 [3, NUM_BGS, 64, 64] (the
-    sprites reach the render through `_stamp_banks`)."""
+    """The sprite atlas (planar u8 [4, A, S, S], with its index) and the
+    13 space backgrounds (planar u8 [3, NUM_BGS, 64, 64]). The batched
+    render reaches the sprites through `_stamp_banks`; the exact render
+    samples the atlas."""
+    names = [f"boss_ship_{k}" for k in atlas_lib.BOSS_SHIP_COLORS]
+    names += [f"pship_{k}" for k in atlas_lib.PLAYER_SHIP_COLORS]
+    names += [f"bolt_{k}" for k in atlas_lib.LASER_COLORS]
+    names += ["shield", "barrier0", "barrier1", "barrier2"]
+    names += [f"explosion{i}" for i in range(5)]
+    atlas, idx = atlas_lib.build_atlas(tuple(names))
     bgs = atlas_lib.build_backgrounds("space", NUM_BGS)
-    return dict(bgs_p=bgs.transpose(3, 0, 1, 2))
+    return dict(atlas_p=atlas.transpose(3, 0, 1, 2), idx=idx,
+                bgs_p=bgs.transpose(3, 0, 1, 2))
 
 
 @functools.lru_cache(maxsize=None)
@@ -749,10 +760,112 @@ def step(cfg: Config, state: State, action):
 # Rendering: fixed camera, pixel-snapped stamp groups, one kernel launch
 # ---------------------------------------------------------------------------
 
-def observe(cfg: Config, state: State):
-    raise NotImplementedError(
-        "single-env bossfight.observe is the exact render path: ROADMAP A, "
-        "item 7, 'exact and window-resolution render paths'")
+@functools.lru_cache(maxsize=None)
+def _observe_assets(device: str):
+    """The exact render's atlas and backgrounds on `device` (`C.bank`)
+    and its atlas tables: boss_ships, pships, bolts, barriers and expl,
+    each the atlas index of a texture choice."""
+    A = _assets()
+    idx = A["idx"]
+    dev = torch.device(device)
+
+    def table(names):
+        return torch.tensor([idx[n] for n in names], device=dev)
+    return dict(
+        atlas=C.bank(A["atlas_p"], device), bgs=C.bank(A["bgs_p"], device),
+        idx=idx,
+        boss_ships=table([f"boss_ship_{k}" for k in atlas_lib.BOSS_SHIP_COLORS]),
+        pships=table([f"pship_{k}" for k in atlas_lib.PLAYER_SHIP_COLORS]),
+        bolts=table([f"bolt_{k}" for k in atlas_lib.LASER_COLORS]),
+        barriers=table([f"barrier{i}" for i in range(3)]),
+        expl=table([f"explosion{i}" for i in range(5)]))
+
+
+def _bullets(img, R, atlas, bolt_sid, pos, rot, frame, window, sizes, wx,
+             wy):
+    """A bullet ring, slot by slot: live bullets (frame 0) as their bolt,
+    exploding ones (frame >= 1) as explosion frame - 1, sizes (live,
+    exploding) in world units, rotated by rot + pi/2 where rot is given."""
+    for i in range(frame.shape[1]):
+        f = frame[:, i]
+        is_live = window[:, i] & (f == 0.0)
+        is_expl = window[:, i] & (f >= 1.0)
+        eidx = torch.clamp(f.to(torch.int32) - 1, 0, 4)
+        sid = torch.where(is_live, bolt_sid, R["expl"][eidx.long()])
+        w = torch.where(is_live, sizes[0], sizes[1])
+        img = C.draw_sprite(
+            img, atlas, sid, pos[:, i, 0] - w * 0.5, pos[:, i, 1] - w * 0.5,
+            w, w, wx, wy,
+            rotation=None if rot is None else rot[:, i] + _HALF_PI,
+            alive=is_live | is_expl)
+    return img
+
+
+def observe(cfg: Config, state: State, size: int = C.OBS):
+    """Each env's frame at size x size by the exact render (bossfight.cpp:
+    400-424): the background over the whole screen, barriers, boss
+    bullets (rotated) and their explosions, the boss, its shield (alpha
+    0.7), damage explosions, player bullets and the player's ship; the
+    fixed camera spans the same world at any size. Every bullet slot is a
+    blend over the whole frame. uint8 [N, size, size, 3]."""
+    R = _observe_assets(str(state.pos.device))
+    atlas = R["atlas"]
+    level = state.level
+    N = state.pos.shape[0]
+    dev = state.pos.device
+    zero = torch.zeros(N, dtype=torch.float32, device=dev)
+    # window renders scale the zoom (bossfight.cpp:412)
+    wx, wy = C.camera_coords(PPU * (size / 64.0), zero, zero, size)
+    # the barriers' loop reads the maps computed on their own
+    lx, ly = C.camera_coords(PPU * (size / 64.0), zero, zero, size,
+                             fused=False)
+
+    img = C.clear(N, size, dev)
+    # the background spans the screen (bossfight.cpp:416-418)
+    img = C.draw_background(img, R["bgs"], level.bg_index, wx, wy,
+                            origin=-HALF, size_units=2 * HALF)
+    # barriers: offset -0.15, scale 0.3 (bossfight.cpp:480); the JAX
+    # package passes the sizes as arrays, so the rects divide truly
+    size_bar = torch.full((N, MAX_BARRIERS), 0.3, dtype=torch.float32,
+                          device=dev)
+    img = C.draw_sprites(img, atlas, R["barriers"][level.barrier_tex.long()],
+                         level.barrier_pos[..., 0] - 0.15,
+                         level.barrier_pos[..., 1] - 0.15, size_bar,
+                         size_bar, lx, ly, alives=level.barrier_exists)
+    # boss bullets and their explosions (size 0.1: the laser ~0.3 units,
+    # explosions ~0.38)
+    bolt_sid = R["bolts"][level.bullet_tex.long()]
+    img = _bullets(img, R, atlas, bolt_sid, state.bb_pos, state.bb_rot,
+                   state.bb_frame,
+                   _window(state.bb_next, state.bb_num, NUM_B_BULLETS),
+                   (0.3, 0.38), wx, wy)
+    # the boss (size 0.25: 106x80 px, 1.66 x 1.25 units)
+    img = C.draw_sprite(img, atlas, R["boss_ships"][level.boss_tex.long()],
+                        state.boss_pos[:, 0] - 0.83,
+                        state.boss_pos[:, 1] - 0.625, 1.66, 1.25, wx, wy)
+    # the shield in a shielded phase (alpha 0.7; 143x119 px * 0.25)
+    img = C.draw_sprite(img, atlas, R["idx"]["shield"],
+                        state.boss_pos[:, 0] - 1.117,
+                        state.boss_pos[:, 1] - 0.93, 2.234, 1.86, wx, wy,
+                        alive=state.phase_index % 2 == 0, alpha=0.7)
+    # damage explosions (size 0.3: ~1.1 units)
+    ewindow = _window(state.ex_next, state.ex_num, NUM_EXPLOSIONS)
+    for i in range(NUM_EXPLOSIONS):
+        eidx = torch.clamp(state.ex_frame[:, i].to(torch.int32), 0, 4)
+        img = C.draw_sprite(img, atlas, R["expl"][eidx.long()],
+                            state.ex_pos[:, i, 0] - 0.56,
+                            state.ex_pos[:, i, 1] - 0.56, 1.125, 1.125, wx,
+                            wy, alive=ewindow[:, i] & (state.ex_frame[:, i]
+                                                       >= 0.0))
+    # player bullets (size 0.05: 0.15 units), then the ship (0.31 units)
+    img = _bullets(img, R, atlas, bolt_sid, state.ab_pos, None,
+                   state.ab_frame,
+                   _window(state.ab_next, state.ab_num, NUM_A_BULLETS),
+                   (0.15, 0.19), wx, wy)
+    img = C.draw_sprite(img, atlas, R["pships"][level.ship_tex.long()],
+                        state.pos[:, 0] - 0.155, state.pos[:, 1] - 0.117,
+                        0.31, 0.234, wx, wy)
+    return C.finalize(img)
 
 
 def obs_space(cfg: Config):

@@ -14,10 +14,10 @@ common_systems.cpp:50-396); and the quantized-camera scene render through
 the scene kernel, with four stamp groups (smoke, objects, bullets, ship).
 
 Every function works on a batch: `generate` on a batch of keys [L, 2]
-(one level each), `reset`/`step`/`observe_batch` on a batch of envs. The
-random draws are the JAX package's, key for key (`..random`), and the
-ship's cos/sin are XLA CPU's (`..trig`), so a level, a state and an
-observation can be compared with it bit for bit.
+(one level each), `reset`/`step`/`observe_batch`/`observe` on a batch of
+envs. The random draws are the JAX package's, key for key (`..random`),
+and the ship's cos/sin are XLA CPU's (`..trig`), so a level, a state and
+an observation can be compared with it bit for bit.
 
 Modes (tilemap.cpp:121-126): easy 20, hard 40, memory 45 (no prune).
 """
@@ -68,6 +68,10 @@ NUM_BGS = 13  # caveflyer.cpp:59-73 (13 space backgrounds)
 _LUT_WALL = (NONE, FULL)  # wall -> full
 # `jnp.pi * 0.5` as XLA adds it to an f32 angle: the f32 nearest pi/2
 _HALF_PI = float(np.float32(math.pi * 0.5))
+# the ship's centre less its position in the exact render: XLA folds
+# (pos - offset) + 0.5 * size into pos + f32(0.5 * size) - f32(offset)
+_SHIP_DX = float(np.float32(0.5 * 0.928) - np.float32(0.464))
+_SHIP_DY = float(np.float32(0.5 * 0.703) - np.float32(0.352))
 
 SHIP_ROT_BINS = 32
 BULLET_ROT_BINS = 16
@@ -79,7 +83,7 @@ PART_SCALE_BINS = 4
 class Config:
     mode: str = "easy"
     # Render-only: camera phase quantization of the scene render
-    # (render/phases.py); 0 = exact continuous camera (not ported yet).
+    # (render/phases.py); 0 = the exact, continuous camera.
     scene_phases: int = 4
 
     @property
@@ -213,13 +217,28 @@ def _scene_tensors(qp, D, device):
     device): bf16 tile bank, bg bank, TR, the premultiplied stamp banks."""
     SA = _scene_assets(qp, D)
     dev = torch.device(device)
-    banks = {k: C._premultiply_bank(v).to(dev)
-             for k, v in _stamp_banks().items()}
     return dict(
         tile_bank=torch.from_numpy(SA["bank"]).to(torch.bfloat16).to(dev),
         bg_bank=torch.from_numpy(SA["bgpad"]).to(torch.bfloat16).to(dev),
         tr_tab=torch.from_numpy(SA["TRtab"]).to(dev),
-        banks=banks, kinds=SA["kinds"], themes=SA["themes"], win=SA["win"])
+        banks=_observe_assets(device)["banks"], kinds=SA["kinds"],
+        themes=SA["themes"], win=SA["win"])
+
+
+@functools.lru_cache(maxsize=None)
+def _observe_assets(device: str):
+    """The constant tensors of the exact renders on `device`: the atlas
+    and backgrounds (`C.bank`), the premultiplied stamp banks and the
+    explosion frames' atlas indices."""
+    A = _assets()
+    idx = A["idx"]
+    dev = torch.device(device)
+    return dict(
+        atlas=C.bank(A["atlas_p"], device), bgs=C.bank(A["bgs_p"], device),
+        idx=idx, expl=torch.tensor([idx[f"explosion{i}"] for i in range(5)],
+                                   device=dev),
+        banks={k: C._premultiply_bank(v).to(dev)
+               for k, v in _stamp_banks().items()})
 
 
 # ---------------------------------------------------------------------------
@@ -602,16 +621,89 @@ def step(cfg: Config, state: State, action):
 # Rendering (caveflyer.cpp:413-441)
 # ---------------------------------------------------------------------------
 
-def observe(cfg: Config, state: State):
-    raise NotImplementedError(
-        "single-env caveflyer.observe needs the exact render paths: ROADMAP "
-        "A, 'exact and window-resolution render paths'")
+def observe(cfg: Config, state: State, size: int = C.OBS):
+    """Each env's frame at size x size by the exact render (caveflyer.cpp:
+    413-441): background, cave walls, the thrust smoke (rotated), meteors,
+    targets, enemies, the goal, the bullets and explosions (rotated) and
+    the ship (rotated +90 degrees), the camera on the ship spanning the
+    same world at any size. uint8 [N, size, size, 3]."""
+    R = _observe_assets(str(state.pos.device))
+    atlas, idx = R["atlas"], R["idx"]
+    level = state.level
+    N = state.pos.shape[0]
+    dev = state.pos.device
+    # window renders scale the zoom (render_game)
+    wx, wy = C.camera_coords(PPU * (size / 64.0), state.pos[:, 0],
+                             state.pos[:, 1], size)
+    # the hazards' loops read the maps computed on their own
+    lx, ly = C.camera_coords(PPU * (size / 64.0), state.pos[:, 0],
+                             state.pos[:, 1], size, fused=False)
+
+    img = C.clear(N, size, dev)
+    img = C.draw_background(img, R["bgs"], level.bg_index, wx, wy)
+    img = C.draw_tiles(img, level.wall.to(torch.int8), [-1, idx["cave_wall"]],
+                       atlas, wx, wy, oob_tile=0)
+
+    # thrust smoke after the tiles, before the sprites (caveflyer.cpp:437):
+    # growing, fading, drifting back along its direction. XLA CPU fuses
+    # 0.4 * ratio + 0.6 and the centre's multiply-add
+    ratio = torch.clamp((PART_LIFESPAN - state.part_life)
+                        * C.recip32(PART_LIFESPAN), 0.0, 1.0)
+    centre = prng._fma32(state.part_dir, (ratio * 2.0)[..., None],
+                         state.part_pos)
+    for i in range(NUM_PARTICLES):
+        sc = prng._fma32(ratio[:, i], 0.4, 0.6)
+        img = C.draw_sprite(img, atlas, idx["smoke"],
+                            centre[:, i, 0] - 0.5 * sc,
+                            centre[:, i, 1] - 0.5 * sc, sc, sc, wx, wy,
+                            rotation=state.part_rot[:, i],
+                            alive=state.part_life[:, i] > 0.0,
+                            alpha=0.5 * (1.0 - ratio[:, i]))
+
+    # hazards and the goal: 0.8-unit sprites at offset -0.4
+    for sid, p, h, alive in (
+            ("meteor", level.obst_pos, 0.8 * 84 / 101, level.obst_exists),
+            ("ufo_red", level.target_pos, 0.8, state.target_alive),
+            ("enemy_ship", state.enemy_pos, 0.8 * 84 / 82,
+             level.enemy_exists)):
+        M = p.shape[1]
+        img = C.draw_sprites(img, atlas, idx[sid], p[..., 0] - 0.4,
+                             p[..., 1] - 0.4, _const(0.8, N, M, dev),
+                             _const(h, N, M, dev), lx, ly, alives=alive)
+    img = C.draw_sprite(img, atlas, idx["ufo_green"],
+                        level.goal_pos[:, 0] - 0.4, level.goal_pos[:, 1] - 0.4,
+                        0.8, 0.8, wx, wy)
+
+    # bullets and explosions (common_systems.cpp:298-317): the laser 13x37
+    # px at size 0.1 (0.081 x 0.231 units), explosions 0.375 units
+    window = _ring_window(state.next_bullet, state.num_bullets)
+    for i in range(NUM_BULLETS):
+        frame = state.b_frame[:, i]
+        is_live = window[:, i] & (frame == 0.0)
+        is_expl = window[:, i] & (frame >= 1.0)
+        eidx = torch.clamp(frame.to(torch.int32) - 1, 0, 4)
+        sid = torch.where(is_live, idx["laser"], R["expl"][eidx.long()])
+        w = torch.where(is_live, 0.081, 0.375)
+        h = torch.where(is_live, 0.231, 0.375)
+        img = C.draw_sprite(img, atlas, sid, state.b_pos[:, i, 0] - w * 0.5,
+                            state.b_pos[:, i, 1] - h * 0.5, w, h, wx, wy,
+                            rotation=state.b_rot[:, i] + _HALF_PI,
+                            alive=is_live | is_expl)
+
+    # the ship: 99x75 px at size 0.15 (0.93 x 0.70 units), rotated +90 deg
+    # about its centre, which XLA folds to pos + (0.5 * size - offset)
+    img = C.draw_sprite(img, atlas, idx["ship_red"], state.pos[:, 0] - 0.464,
+                        state.pos[:, 1] - 0.352, 0.928, 0.703, wx, wy,
+                        rotation=state.rot + _HALF_PI,
+                        centre=(state.pos[:, 0] + _SHIP_DX,
+                                state.pos[:, 1] + _SHIP_DY))
+    return C.finalize(img)
 
 
-def _observe_exact(cfg: Config, states: State):
-    raise NotImplementedError(
-        "caveflyer with scene_phases=0 needs the exact render paths: ROADMAP "
-        "A, 'exact and window-resolution render paths'")
+def _const(v, N, M, device):
+    """v as f32 [N, M]: a size that the JAX package passes as an array,
+    so that its rects divide by it truly."""
+    return torch.full((N, M), v, dtype=torch.float32, device=device)
 
 
 def obs_space(cfg: Config):
@@ -624,11 +716,30 @@ def action_space(cfg: Config):
 
 def observe_batch(cfg: Config, states: State):
     """Planar uint8 [N, 3, 64, 64]: the quantized-phase scene render (the
-    throughput path); `scene_phases=0` (exact camera) is not ported yet."""
-    if C.OBS == 64 and cfg.scene_phases > 0:
+    throughput path), or with `scene_phases=0` the exact-camera render."""
+    if cfg.scene_phases > 0:
         img = scene_kernel.scene_raw(*_scene_inputs(cfg, states))
         return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
     return _observe_exact(cfg, states)
+
+
+def _observe_exact(cfg: Config, states: State):
+    """The exact-camera batched render (`scene_phases=0`): the camera on
+    the ship unsnapped (caveflyer.cpp:452-453); the background and the
+    cave walls (`draw_tiles_batch`), then the four stamp groups of
+    `_stamp_groups` in turn by `compositor.composite_stamps`: the smoke
+    (K = 10, P = 10), the objects (P = 8), the bullet ring (K = 32,
+    P = 4) and the ship (P = 12), each one B3 launch on the card."""
+    R = _observe_assets(str(states.pos.device))
+    cam = states.pos
+    wx, wy = C.camera_coords(PPU, cam[:, 0], cam[:, 1])
+    img = C.draw_background_batch(R["bgs"], states.level.bg_index, wx, wy)
+    img = C.draw_tiles_batch(img, states.level.wall.to(torch.int8),
+                             [-1, R["idx"]["cave_wall"]], R["atlas"], wx, wy,
+                             oob_tile=0)
+    for g in _stamp_groups(states, cam, R["banks"]):
+        img = C.composite_stamps(img, *g)
+    return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
 
 
 def _rot_bin(angle, bins):
@@ -640,8 +751,9 @@ def _rot_bin(angle, bins):
 
 
 def _stamp_groups(states: State, cam, banks):
-    """The render's four stamp groups in painter order, (bank, var, scale,
-    r0, c0) with [N, K] each: thrust smoke (K = 10, drawn after the tiles,
+    """The render's four stamp groups in painter order, (bank, var, r0,
+    c0, alives, alpha) as `compositor.composite_stamps` takes them, [N, K]
+    each (alpha only on the smoke): thrust smoke (K = 10, drawn after the tiles,
     caveflyer.cpp:437), the objects (meteors, targets, enemies and the
     goal: K = 3M + 1), the bullets and explosions (K = 32), the ship."""
     level = states.level
@@ -653,8 +765,8 @@ def _stamp_groups(states: State, cam, banks):
     def group(bank, var, centers, alives=None, alpha=None):
         py, px = C.stamp_origin(centers, cam[:, 0], cam[:, 1], PPU,
                                 bank.shape[-1])
-        return C.stamp_group(bank, var, torch.round(py).to(i32),
-                             torch.round(px).to(i32), alives, alpha)
+        return (bank, var, torch.round(py).to(i32), torch.round(px).to(i32),
+                alives, alpha)
 
     # thrust smoke: fading, growing, drifting back. XLA CPU makes
     # (5 - life) / 5 a multiply by f32(1/5) and fuses the centre's
@@ -726,4 +838,6 @@ def _scene_inputs(cfg: Config, states: State):
             jq[:, 1].contiguous(), jq[:, 0].contiguous(),
             level.bg_index.to(i32), theme, ST["bg_bank"], ST["tr_tab"],
             ST["tile_bank"], ST["kinds"], ST["themes"],
-            _stamp_groups(states, cam, ST["banks"]), C.OBS, qp, W)
+            [C.stamp_group(*g) for g in _stamp_groups(states, cam,
+                                                      ST["banks"])],
+            C.OBS, qp, W)

@@ -16,10 +16,10 @@ package's: the missing y flip of the egg respawn, the dead-end push to
 the left, and the global timers (its module docstring).
 
 Every function works on a batch: `generate` on a batch of keys [L, 2]
-(one level each), `reset`/`step`/`observe_batch` on a batch of envs; the
-mobs of all envs step together. The random draws are the JAX package's,
-key for key (`..random`), so a level, a state and an observation can be
-compared with it bit for bit.
+(one level each), `reset`/`step`/`observe_batch`/`observe` on a batch of
+envs; the mobs of all envs step together. The random draws are the JAX
+package's, key for key (`..random`), so a level, a state and an
+observation can be compared with it bit for bit.
 
 Modes (tilemap.cpp:85-99): easy 11x11 with 3 enemies, hard 13x13 with 3,
 extreme 19x19 with 5.
@@ -526,10 +526,64 @@ def step(cfg: Config, state: State, action):
 # Rendering (chaser.cpp:388-420): the kind field and one stamp group
 # ---------------------------------------------------------------------------
 
-def observe(cfg: Config, state: State):
-    raise NotImplementedError(
-        "single-env chaser.observe needs the exact render paths: ROADMAP "
-        "A, 'exact and window-resolution render paths'")
+@functools.lru_cache(maxsize=None)
+def _observe_assets(device: str):
+    """The exact render's atlas and backgrounds on `device` (`C.bank`)
+    and the flyer's 6-frame cycle as atlas indices."""
+    A = _assets()
+    idx = A["idx"]
+    return dict(atlas=C.bank(A["atlas_p"], device),
+                bgs=C.bank(A["bgs_p"], device), idx=idx,
+                # hatched: anim_index < 3 ? index : 5 - index
+                # (common_systems.cpp:151-155)
+                flyer=torch.tensor([idx[f"flyer{i}"] for i in (0, 1, 2, 2,
+                                                                 1, 0)],
+                                   device=torch.device(device)))
+
+
+def observe(cfg: Config, state: State, size: int = C.OBS):
+    """Each env's frame at size x size by the exact render (chaser.cpp:
+    388-420): background, walls, pellets as a tile layer, orbs, enemies
+    and the agent over the whole frame. uint8 [N, size, size, 3]."""
+    R = _observe_assets(str(state.pos.device))
+    idx, atlas = R["idx"], R["atlas"]
+    level = state.level
+    N = state.pos.shape[0]
+    dev = state.pos.device
+    D = cfg.world_dim
+    centre = torch.full((N,), D / 2.0, dtype=torch.float32, device=dev)
+    # the camera fits the map's width (chaser.cpp:400)
+    wx, wy = C.camera_coords(size / D, centre, centre, size)
+    # the orbs' and enemies' loops read the maps computed on their own
+    lx, ly = C.camera_coords(size / D, centre, centre, size, fused=False)
+
+    img = C.clear(N, size, dev)
+    img = C.draw_background(img, R["bgs"], level.bg_index, wx, wy)
+    img = C.draw_tiles(img, level.wall.to(torch.int8),
+                       [-1, idx["stone_wall"]], atlas, wx, wy, oob_tile=0)
+    # the pellets: a tile layer, one 1x1 sprite per cell holding one
+    pellets = torch.where(state.point_grid, 0, -1)
+    img = C.draw_tiles(img, pellets, [idx["chaser_point"]], atlas, wx, wy,
+                       oob_tile=-1)
+    img = C.draw_sprites(img, atlas, idx["crystal"],
+                         level.orb_pos[..., 0] - 0.5,
+                         level.orb_pos[..., 1] - 0.5, 1.0, 1.0, lx, ly,
+                         alives=level.orb_exists & ~state.orb_taken)
+    # enemies: an egg until hatched, then the flyer's cycle, or the
+    # fleeing walker while the agent can eat them
+    hatched = state.hatch_timer >= HATCH_TIME
+    sid = torch.where(
+        hatched,
+        torch.where(state.eat_timer > 0.0, idx["walker_flee"],
+                    R["flyer"][state.anim_index.long()])[:, None],
+        idx["egg_spikey"])
+    img = C.draw_sprites(img, atlas, sid, state.mob_pos[..., 0] - 0.5,
+                         state.mob_pos[..., 1] - 0.5, 1.0, 1.0, lx, ly,
+                         alives=level.egg_exists)
+    # the agent (common_systems.cpp:446-460)
+    img = C.draw_sprite(img, atlas, idx["floater"], state.pos[:, 0] - 0.5,
+                        state.pos[:, 1] - 0.5, 1.0, 1.0, wx, wy)
+    return C.finalize(img)
 
 
 def obs_space(cfg: Config):

@@ -11,10 +11,10 @@ taken (climber.cpp:339-355), over 4 physics sub-steps with early exit;
 and the quantized-camera scene render through the scene kernel.
 
 Every function works on a batch: `generate` on a batch of keys [L, 2]
-(one level each), `reset`/`step`/`observe_batch` on a batch of envs. The
-random draws are the JAX package's, key for key (`..random`), so a level,
-a state and an observation can be compared with it bit for bit.
-"""
+(one level each), `reset`/`step`/`observe_batch`/`observe` on a batch of
+envs. The random draws are the JAX package's, key for key (`..random`),
+so a level, a state and an observation can be compared with it bit for
+bit."""
 from __future__ import annotations
 
 import dataclasses
@@ -73,7 +73,7 @@ _LUT_WALL = (NONE, FULL, FULL)
 class Config:
     easy_mode: bool = False  # enemy_prob .2 vs .5, tilemap.cpp:118
     # Render-only: camera phase quantization of the scene render
-    # (render/phases.py); 0 = exact continuous camera (not ported yet).
+    # (render/phases.py); 0 = the exact, continuous camera.
     scene_phases: int = 4
 
 
@@ -464,16 +464,111 @@ def step(cfg: Config, state: State, action):
 # Rendering (climber.cpp:431-457)
 # ---------------------------------------------------------------------------
 
-def observe(cfg: Config, state: State):
-    raise NotImplementedError(
-        "single-env climber.observe needs the exact render paths: ROADMAP "
-        "A, 'exact and window-resolution render paths'")
+@functools.lru_cache(maxsize=None)
+def _observe_assets(device: str):
+    """The exact renders' atlas and backgrounds on `device` (`C.bank`),
+    the premultiplied stamp banks, and the atlas tables: tile_lut
+    [theme, kind] (-1 transparent), swim_frames, agent_lut [theme, pose]."""
+    A = _assets()
+    idx = A["idx"]
+    dev = torch.device(device)
+    tile_lut = np.full((NUM_TILE_THEMES, NUM_TILE_IDS), -1, np.int64)
+    for t, th in enumerate(atlas_lib.CLIMBER_TILE_THEMES):
+        tile_lut[t, WALL_TOP] = idx[f"ctile_top_{th}"]
+        tile_lut[t, WALL_MID] = idx[f"ctile_mid_{th}"]
+    agent_lut = [[idx[f"climber_{th}_{k}"]
+                  for k in ("stand", "jump", "walk1", "walk2")]
+                 for th in atlas_lib.CLIMBER_AGENT_THEMES]
+    banks = _stamp_banks()
+    return dict(
+        atlas=C.bank(A["atlas_p"], device), bgs=C.bank(A["bgs_p"], device),
+        idx=idx, tile_lut=tile_lut,
+        swim_frames=torch.tensor([idx["swimmer"], idx["swimmer_move"]],
+                                 device=dev),
+        agent_lut=torch.tensor(agent_lut, device=dev),
+        moving=C._premultiply_bank(banks["moving"]).to(dev),
+        agent=C._premultiply_bank(banks["agent"]).to(dev))
+
+
+def _pose(states: State):
+    """The agent's pose int32 [N]: 0 stand, 1 jump, 2/3 the walk frames."""
+    return torch.where(
+        (torch.abs(states.vel[:, 0]) < 0.01) & states.on_ground, 0,
+        torch.where(~states.on_ground, 1,
+                    torch.where(states.anim_t > 0.5, 3, 2))).to(torch.int32)
+
+
+def observe(cfg: Config, state: State, size: int = C.OBS):
+    """Each env's frame at size x size by the exact render (climber.cpp:
+    431-457): background, themed walls, crystals, swimming mobs and the
+    agent over the whole frame, the camera spanning the same world at any
+    size. uint8 [N, size, size, 3]."""
+    R = _observe_assets(str(state.pos.device))
+    atlas = R["atlas"]
+    level = state.level
+    N = state.pos.shape[0]
+    dev = state.pos.device
+    cam_x = torch.full((N,), MAP_W / 2.0, dtype=torch.float32,
+                       device=dev)  # climber.cpp:464
+    cam_y = state.pos[:, 1] - 8.5  # common_systems.cpp:259
+    # window renders scale the zoom (render_game)
+    wx, wy = C.camera_coords(PPU * (size / 64.0), cam_x, cam_y, size)
+    # the crystals' and mobs' loops read the maps computed on their own
+    lx, ly = C.camera_coords(PPU * (size / 64.0), cam_x, cam_y, size,
+                             fused=False)
+
+    img = C.clear(N, size, dev)
+    img = C.draw_background(img, R["bgs"], level.bg_index, wx, wy)
+    # out of bounds is a wall (tilemap.h:66-69)
+    img = C.draw_tiles(img, level.grid, R["tile_lut"], atlas, wx, wy,
+                       oob_tile=WALL_MID, theme=level.theme)
+    # crystals: 1x1 at offset -0.5 (tilemap.cpp:68-69)
+    img = C.draw_sprites(img, atlas, R["idx"]["crystal"],
+                         level.point_pos[..., 0] - 0.5,
+                         level.point_pos[..., 1] - 0.5, 1.0, 1.0, lx, ly,
+                         alives=level.point_exists & ~state.point_taken)
+    # swimming mobs: offset -0.4, anim rate 0.2 (tilemap.cpp:47-54)
+    mob_sid = R["swim_frames"][((state.t // 5) % 2).long()]
+    img = C.draw_sprites(img, atlas, mob_sid[:, None].expand(N, MAX_MOBS),
+                         state.mob_pos[..., 0] - 0.4,
+                         state.mob_pos[..., 1] - 0.4, 1.0, 1.0, lx, ly,
+                         flips=state.mob_vx < 0.0,  # common_systems.cpp:164
+                         alives=level.mob_alive)
+    # the agent: 0.8 x 1.1 at (x - 0.5, y - 1) (common_systems.cpp:292-294)
+    sid = R["agent_lut"][level.agent_theme.long(), _pose(state).long()]
+    img = C.draw_sprite(img, atlas, sid, state.pos[:, 0] - 0.5,
+                        state.pos[:, 1] - 1.0, 0.8, 1.1, wx, wy,
+                        flip_x=~state.face_forward)
+    return C.finalize(img)
 
 
 def _observe_exact(cfg: Config, states: State):
-    raise NotImplementedError(
-        "climber with scene_phases=0 needs the exact render paths: ROADMAP "
-        "A, 'exact and window-resolution render paths'")
+    """The exact-camera batched render (`scene_phases=0`): the camera at
+    (10, y - 8.5) unsnapped (climber.cpp:464, common_systems.cpp:259); the
+    background, the themed walls from the kind field (out of bounds is a
+    wall, tilemap.h:66-69), then the stamps of `_stamp_slots` by
+    `compositor.composite_stamps`: crystals and mobs (K = 34, P = 8: B3 on
+    the card), the agent (K = 1: the matmul semantics, no kernel)."""
+    R = _observe_assets(str(states.pos.device))
+    level = states.level
+    N = states.pos.shape[0]
+    cam_x = torch.full((N,), MAP_W / 2.0, dtype=torch.float32,
+                       device=states.pos.device)
+    cam_y = states.pos[:, 1] - 8.5
+    wx, wy = C.camera_coords(PPU, cam_x, cam_y)
+    img = C.draw_background_batch(R["bgs"], level.bg_index, wx, wy)
+    sel = C.tile_selectors(wx, wy, MAP_H, MAP_W)
+    G = C.kind_field(level.grid, sel, WALL_MID)
+    atlas = R["atlas"]
+    lut = torch.from_numpy(R["tile_lut"]).to(atlas.device)[
+        level.theme.long()]  # [N, kinds]
+    for kind in (WALL_TOP, WALL_MID):
+        img = C.kind_layer(img, G == kind, atlas[lut[:, kind]], sel)
+    (var, alive, r0, c0), (avar, ar0, ac0) = _stamp_slots(states, cam_x,
+                                                          cam_y)
+    img = C.composite_stamps(img, R["moving"], var, r0, c0, alives=alive)
+    img = C.composite_stamps(img, R["agent"], avar, ar0, ac0)
+    return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
 
 
 def obs_space(cfg: Config):
@@ -486,8 +581,8 @@ def action_space(cfg: Config):
 
 def observe_batch(cfg: Config, states: State):
     """Planar uint8 [N, 3, 64, 64]: the quantized-phase scene render (the
-    throughput path); `scene_phases=0` (exact camera) is not ported yet."""
-    if C.OBS == 64 and cfg.scene_phases > 0:
+    throughput path), or with `scene_phases=0` the exact-camera render."""
+    if cfg.scene_phases > 0:
         return _observe_scene(cfg, states)
     return _observe_exact(cfg, states)
 
@@ -510,40 +605,48 @@ def _camera(cfg: Config, states: State):
             torch.remainder(mx, qp))
 
 
-def _stamp_group(states: State, cam_x, cam_y, bank):
-    """The render's one stamp group, painter order crystals, mobs, agent:
-    (bank, var, scale, r0, c0), [N, 35] each."""
+def _stamp_slots(states: State, cam_x, cam_y):
+    """The render's stamps under the camera (cam_x, cam_y) [N], in painter
+    order: the moving group (crystals, then mobs: var int32, alive bool,
+    r0, c0 int32, [N, 34] each) and the agent ((var, r0, c0), [N, 1]
+    each), P = 8 for both."""
     level = states.level
     N = states.pos.shape[0]
     dev = states.pos.device
     i32 = torch.int32
-    f32 = torch.float32
     live = level.point_exists & ~states.point_taken
     mob_frame = ((states.t // 5) % 2).to(i32)  # anim rate 0.2
     mob_var = (1 + mob_frame[:, None] * 2
                + (states.mob_vx < 0.0).to(i32))  # flipped, common_systems.cpp:164
     crys_var = torch.zeros((N, MAX_POINTS), dtype=i32, device=dev)
-    pose = torch.where(
-        (torch.abs(states.vel[:, 0]) < 0.01) & states.on_ground, 0,
-        torch.where(~states.on_ground, 1,
-                    torch.where(states.anim_t > 0.5, 3, 2))).to(i32)
-    n_mv = _stamp_banks()["moving"].shape[0]
-    avar = (n_mv + level.agent_theme.to(i32) * 8 + pose * 2
-            + (~states.face_forward).to(i32))[:, None]
     # crystal centre = point_pos (1x1 at -0.5); mob centre = mob_pos + 0.1
     # (1x1 at -0.4, tilemap.cpp:47-54); agent 0.8 x 1.1 at (x-0.5, y-1.0)
+    centers = torch.cat([level.point_pos, states.mob_pos + 0.1], dim=1)
     acenter = torch.stack([states.pos[:, 0] - 0.1, states.pos[:, 1] - 0.45],
                           dim=-1)[:, None, :]
-    centers = torch.cat([level.point_pos, states.mob_pos + 0.1, acenter],
-                        dim=1)
-    py, px = C.stamp_origin(centers, cam_x, cam_y, PPU, 8)
-    r0 = torch.round(py).to(i32)
-    c0 = torch.round(px).to(i32)
-    var = torch.cat([crys_var, mob_var, avar], dim=1)
-    alives = torch.cat([live, level.mob_alive,
-                        torch.ones((N, 1), dtype=torch.bool, device=dev)],
-                       dim=1)
-    return (bank, var.contiguous(), alives.to(f32), r0, c0)
+
+    def pix(c):
+        py, px = C.stamp_origin(c, cam_x, cam_y, PPU, 8)
+        return torch.round(py).to(i32), torch.round(px).to(i32)
+    avar = (level.agent_theme.to(i32) * 8 + _pose(states) * 2
+            + (~states.face_forward).to(i32))[:, None]
+    return ((torch.cat([crys_var, mob_var], dim=1).contiguous(),
+             torch.cat([live, level.mob_alive], dim=1), *pix(centers)),
+            (avar.contiguous(), *pix(acenter)))
+
+
+def _stamp_group(states: State, cam_x, cam_y, bank):
+    """The scene's one stamp group, painter order crystals, mobs, agent
+    (the moving and agent banks merged): (bank, var, scale, r0, c0),
+    [N, 35] each."""
+    N = states.pos.shape[0]
+    (var, alive, r0, c0), (avar, ar0, ac0) = _stamp_slots(states, cam_x,
+                                                          cam_y)
+    n_mv = _stamp_banks()["moving"].shape[0]
+    ones = torch.ones((N, 1), dtype=torch.bool, device=var.device)
+    return (bank, torch.cat([var, n_mv + avar], dim=1).contiguous(),
+            torch.cat([alive, ones], dim=1).to(torch.float32),
+            torch.cat([r0, ar0], dim=1), torch.cat([c0, ac0], dim=1))
 
 
 def _padded_grid(level, W):

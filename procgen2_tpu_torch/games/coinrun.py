@@ -9,10 +9,10 @@ step with early exit (coinrun.cpp:44-45, 357-371); and the quantized-
 camera scene render through the scene kernel.
 
 Every function works on a batch: `generate` on a batch of keys [L, 2]
-(one level each), `reset`/`step`/`observe_batch` on a batch of envs. The
-random draws are the JAX package's, key for key (`..random`), so a level,
-a state and an observation can be compared with it bit for bit.
-"""
+(one level each), `reset`/`step`/`observe_batch`/`observe` on a batch of
+envs. The random draws are the JAX package's, key for key (`..random`),
+so a level, a state and an observation can be compared with it bit for
+bit."""
 from __future__ import annotations
 
 import dataclasses
@@ -87,7 +87,7 @@ class Config:
     allow_dy: bool = True
     allow_mobs: bool = True
     # Render-only: camera phase quantization of the scene render
-    # (render/phases.py); 0 = exact continuous camera (not ported yet).
+    # (render/phases.py); 0 = the exact, continuous camera.
     scene_phases: int = 4
 
 
@@ -599,18 +599,94 @@ def step(cfg: Config, state: State, action):
 # Rendering
 # ---------------------------------------------------------------------------
 
-def observe(cfg: Config, state: State):
-    raise NotImplementedError(
-        "single-env coinrun.observe needs the stamp kernel (B3) and the "
-        "exact render paths: ROADMAP A, 'exact and window-resolution "
-        "render paths'")
+@functools.lru_cache(maxsize=None)
+def _observe_assets(device: str):
+    """The exact renders' atlas and backgrounds on `device` (`C.bank`) and
+    the atlas tables: tile_lut [theme, kind] (-1 transparent; crates have
+    their own layer), crate_lut, enemy_lut [variant, frame], saw_frames,
+    agent_lut [theme, pose]."""
+    A = _assets()
+    idx = A["idx"]
+    dev = torch.device(device)
+    tile_lut = np.full((NUM_WALL_THEMES, NUM_TILE_IDS), -1, np.int64)
+    for t, th in enumerate(atlas_lib.WALL_THEMES):
+        tile_lut[t, WALL_TOP] = idx[f"wall_top_{th}"]
+        tile_lut[t, WALL_MID] = idx[f"wall_mid_{th}"]
+        tile_lut[t, LAVA_TOP] = idx["lava_top"]
+        tile_lut[t, LAVA_MID] = idx["lava_mid"]
+    poses = ("stand", "jump", "walk1", "walk2")
+    return dict(
+        atlas=C.bank(A["atlas_p"], device), bgs=C.bank(A["bgs_p"], device),
+        idx=idx, tile_lut=tile_lut, crate_lut=A["crate_lut"],
+        enemy_lut=torch.tensor([[idx[e], idx[f"{e}_move"]]
+                                for e in atlas_lib.WALKING_ENEMIES],
+                               device=dev),
+        saw_frames=torch.tensor([idx["saw"], idx["saw_move"]], device=dev),
+        agent_lut=torch.tensor([[idx[f"alien_{th}_{k}"] for k in poses]
+                                for th in atlas_lib.AGENT_THEMES],
+                               device=dev),
+        moving=C._premultiply_bank(_stamp_banks()["moving"]).to(dev),
+        agent=C._premultiply_bank(_stamp_banks()["agent"]).to(dev))
 
 
-def _observe_exact(cfg: Config, states: State):
-    raise NotImplementedError(
-        "coinrun with scene_phases=0 needs the stamp kernel (B3) and the "
-        "exact render paths: ROADMAP A, 'exact and window-resolution "
-        "render paths'")
+def _pose(states: State):
+    """The agent's pose int32 [N] (common_systems.cpp:263-272): 1 in the
+    air, 0 standing, else the walk frame 2/3."""
+    return torch.where(
+        ~states.on_ground, 1,
+        torch.where(torch.abs(states.vel[:, 0]) < 0.01, 0,
+                    torch.where(states.anim_t > 0.5, 3, 2))).to(torch.int32)
+
+
+def observe(cfg: Config, state: State, size: int = C.OBS):
+    """Each env's frame at size x size by the exact render (coinrun.cpp:
+    443-470): background, themed walls and lava, crates, saws, mobs, the
+    coin and the agent over the whole frame, the camera spanning the same
+    world at any size. uint8 [N, size, size, 3]."""
+    R = _observe_assets(str(state.pos.device))
+    atlas = R["atlas"]
+    level = state.level
+    N = state.pos.shape[0]
+    dev = state.pos.device
+    cam_x = state.pos[:, 0]
+    cam_y = state.pos[:, 1] - 0.5  # common_systems.cpp:238-239
+    # window renders scale the zoom (coinrun.cpp:412)
+    wx, wy = C.camera_coords(PPU * (size / 64.0), cam_x, cam_y, size)
+    # the saws' and mobs' loops read the maps computed on their own
+    lx, ly = C.camera_coords(PPU * (size / 64.0), cam_x, cam_y, size,
+                             fused=False)
+
+    img = C.clear(N, size, dev)
+    img = C.draw_background(img, R["bgs"], level.bg_index, wx, wy)
+    # out of bounds is a wall (tilemap.h:82-87)
+    img = C.draw_tiles(img, level.grid, R["tile_lut"], atlas, wx, wy,
+                       oob_tile=WALL_MID, theme=level.theme)
+    crates = torch.where(level.grid == CRATE, level.crate_variant.to(
+        torch.int32), -1)
+    img = C.draw_tiles(img, crates, R["crate_lut"], atlas, wx, wy,
+                       oob_tile=-1)
+    # saws: z=1, animated every step (anim rate 1.0, tilemap.cpp:61)
+    saw_sid = R["saw_frames"][(state.t % 2).long()]
+    img = C.draw_sprites(img, atlas, saw_sid[:, None].expand(N, MAX_SAWS),
+                         level.saw_pos[..., 0] - 0.5,
+                         level.saw_pos[..., 1] - 0.5, 1.0, 1.0, lx, ly,
+                         alives=level.saw_alive)
+    # mobs: anim rate 0.2, a frame every 5 steps (tilemap.cpp:85)
+    mob_sid = R["enemy_lut"][level.mob_variant.long(),
+                             ((state.t // 5) % 2).long()[:, None]]
+    img = C.draw_sprites(img, atlas, mob_sid, state.mob_pos[..., 0] - 0.5,
+                         state.mob_pos[..., 1] - 0.5, 1.0, 1.0, lx, ly,
+                         flips=state.mob_vx > 0.0,  # common_systems.cpp:100-103
+                         alives=level.mob_alive)
+    img = C.draw_sprite(img, atlas, R["idx"]["coin"],
+                        level.coin_pos[:, 0] - 0.5, level.coin_pos[:, 1] - 0.5,
+                        1.0, 1.0, wx, wy)
+    # the agent: 1x2 units at (x - 0.5, y - 2)
+    sid = R["agent_lut"][level.agent_theme.long(), _pose(state).long()]
+    img = C.draw_sprite(img, atlas, sid, state.pos[:, 0] - 0.5,
+                        state.pos[:, 1] - 2.0, 1.0, 2.0, wx, wy,
+                        flip_x=~state.face_forward)  # common_systems.cpp:276
+    return C.finalize(img)
 
 
 def obs_space(cfg: Config):
@@ -632,10 +708,94 @@ def _cull(cam_x, pos, alive, k):
 
 def observe_batch(cfg: Config, states: State):
     """Planar uint8 [N, 3, 64, 64]: the quantized-phase scene render (the
-    throughput path); `scene_phases=0` (exact camera) is not ported yet."""
-    if C.OBS == 64 and cfg.scene_phases > 0:
+    throughput path), or with `scene_phases=0` the exact-camera render."""
+    if cfg.scene_phases > 0:
         return _observe_scene(cfg, states)
     return _observe_exact(cfg, states)
+
+
+def _observe_exact(cfg: Config, states: State):
+    """The exact-camera batched render (`scene_phases=0`): the camera at
+    (x, y - 0.5) unsnapped (common_systems.cpp:238-239); the background,
+    then the themed walls, the lava and the four crate kinds from one
+    packed kind field (crates carry CRATE + 8 * variant); then the two
+    stamp groups of `_stamp_slots` by `compositor.composite_stamps`, on
+    the card B3 for each (both are on the stamp-kernel path)."""
+    R = _observe_assets(str(states.pos.device))
+    level = states.level
+    i32 = torch.int32
+    cam_x = states.pos[:, 0]
+    cam_y = states.pos[:, 1] - 0.5
+    wx, wy = C.camera_coords(PPU, cam_x, cam_y)
+    img = C.draw_background_batch(R["bgs"], level.bg_index, wx, wy)
+
+    sel = C.tile_selectors(wx, wy, WORLD, WORLD)
+    packed = torch.where(level.grid == CRATE,
+                         (CRATE + level.crate_variant.to(i32) * 8).to(
+                             torch.int8), level.grid)
+    G = C.kind_field(packed, sel, WALL_MID)  # out of bounds is a wall
+    atlas = R["atlas"]
+    lut = torch.from_numpy(R["tile_lut"]).to(atlas.device)[
+        level.theme.long()]  # [N, kinds]
+    for kind in (WALL_TOP, WALL_MID):  # themed: per-env textures
+        img = C.kind_layer(img, G == kind, atlas[lut[:, kind]], sel)
+    img = C.kind_layer(img, G == LAVA_TOP, atlas[R["idx"]["lava_top"]], sel)
+    img = C.kind_layer(img, G == LAVA_MID, atlas[R["idx"]["lava_mid"]], sel)
+    for v, sid in enumerate(R["crate_lut"]):
+        img = C.kind_layer(img, G == CRATE + v * 8, atlas[int(sid)], sel)
+
+    (var, alive, r0, c0), (avar, _, ar0, ac0) = _stamp_slots(
+        states, cam_x, cam_y)
+    img = C.composite_stamps(img, R["moving"], var, r0, c0, alives=alive)
+    img = C.composite_stamps(img, R["agent"], avar, ar0, ac0)
+    return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
+
+
+def _stamp_slots(states: State, cam_x, cam_y):
+    """The render's two stamp groups under the camera (cam_x, cam_y) [N],
+    as (var int32, alive bool, r0, c0 int32), [N, K] each: the moving
+    group (K = 17, P = 8) and the agent (K = 1, P = 12, alive None).
+
+    The moving group is the joint saw + mob cull (HAZARD_CULL slots
+    nearest the camera) with the coin last: slot order is painter order
+    (saws and mobs, then the coin)."""
+    level = states.level
+    N = states.pos.shape[0]
+    dev = states.pos.device
+    i32 = torch.int32
+
+    def pix(centers, P):
+        py, px = C.stamp_origin(centers, cam_x, cam_y, PPU, P)
+        return torch.round(py).to(i32), torch.round(px).to(i32)
+
+    saw_frame = (states.t % 2).to(i32)  # anim rate 1.0
+    mob_frame = ((states.t // 5) % 2).to(i32)  # anim rate 0.2
+    saw_var_full = saw_frame[:, None].expand(N, MAX_SAWS)
+    mob_var_full = (3 + level.mob_variant.to(i32) * 4
+                    + mob_frame[:, None] * 2 + (states.mob_vx > 0.0).to(i32))
+    all_pos = torch.cat([level.saw_pos, states.mob_pos], dim=1)
+    all_alive = torch.cat([level.saw_alive, level.mob_alive], dim=1)
+    all_var = torch.cat([saw_var_full, mob_var_full], dim=1)
+    ids = _cull(cam_x, all_pos, all_alive, HAZARD_CULL)
+    hz_pos = all_pos.gather(1, ids[..., None].expand(N, HAZARD_CULL, 2))
+    hz_alive = all_alive.gather(1, ids)
+    hz_var = all_var.gather(1, ids)
+
+    centers = torch.cat([hz_pos, level.coin_pos[:, None, :]], dim=1)
+    var = torch.cat([hz_var, torch.full((N, 1), 2, dtype=i32, device=dev)],
+                    dim=1)
+    alive = torch.cat([hz_alive, torch.ones((N, 1), dtype=torch.bool,
+                                            device=dev)], dim=1)
+    r0, c0 = pix(centers, 8)
+
+    # the agent: 1x2 units, centred at pos - (0, 1)
+    avar = (states.level.agent_theme.to(i32) * 8 + _pose(states) * 2
+            + (~states.face_forward).to(i32))[:, None]
+    acenter = torch.stack([states.pos[:, 0], states.pos[:, 1] - 1.0],
+                          dim=-1)[:, None, :]
+    ar0, ac0 = pix(acenter, 12)
+    return ((var.contiguous(), alive, r0, c0),
+            (avar.contiguous(), None, ar0, ac0))
 
 
 def _scene_inputs(cfg: Config, states: State):
@@ -667,45 +827,12 @@ def _scene_inputs(cfg: Config, states: State):
                          level.grid)
     gridp = torch.nn.functional.pad(packed, (W, W, W, W), value=WALL_MID)
 
-    def pix(centers, P):
-        py, px = C.stamp_origin(centers, cam_x, cam_y, PPU, P)
-        return torch.round(py).to(i32), torch.round(px).to(i32)
-
-    saw_frame = (states.t % 2).to(i32)
-    mob_frame = ((states.t // 5) % 2).to(i32)
-    saw_var_full = saw_frame[:, None].expand(N, MAX_SAWS)
-    mob_var_full = (3 + level.mob_variant.to(i32) * 4
-                    + mob_frame[:, None] * 2 + (states.mob_vx > 0.0).to(i32))
-    all_pos = torch.cat([level.saw_pos, states.mob_pos], dim=1)
-    all_alive = torch.cat([level.saw_alive, level.mob_alive], dim=1)
-    all_var = torch.cat([saw_var_full, mob_var_full], dim=1)
-    ids = _cull(cam_x, all_pos, all_alive, HAZARD_CULL)
-    hz_pos = all_pos.gather(1, ids[..., None].expand(N, HAZARD_CULL, 2))
-    hz_alive = all_alive.gather(1, ids)
-    hz_var = all_var.gather(1, ids)
-
-    # slot order = painter order: hazards, then the coin
-    centers = torch.cat([hz_pos, level.coin_pos[:, None, :]], dim=1)
-    vars_ = torch.cat([hz_var, torch.full((N, 1), 2, dtype=i32, device=dev)],
-                      dim=1)
-    scale = torch.cat([hz_alive.to(f32),
-                       torch.ones((N, 1), dtype=f32, device=dev)], dim=1)
-    r0, c0 = pix(centers, 8)
-
-    pose = torch.where(
-        ~states.on_ground, 1,
-        torch.where(torch.abs(states.vel[:, 0]) < 0.01, 0,
-                    torch.where(states.anim_t > 0.5, 3, 2))).to(i32)
-    avar = (level.agent_theme.to(i32) * 8 + pose * 2
-            + (~states.face_forward).to(i32))[:, None]
-    acenter = torch.stack([states.pos[:, 0], states.pos[:, 1] - 1.0],
-                          dim=-1)[:, None, :]
-    ar0, ac0 = pix(acenter, 12)
-
+    (var, alive, r0, c0), (avar, _, ar0, ac0) = _stamp_slots(
+        states, cam_x, cam_y)
     groups = [
-        (ST["moving"], vars_.contiguous(), scale, r0, c0),
-        (ST["agent"], avar.contiguous(),
-         torch.ones((N, 1), dtype=f32, device=dev), ar0, ac0),
+        (ST["moving"], var, alive.to(f32), r0, c0),
+        (ST["agent"], avar, torch.ones((N, 1), dtype=f32, device=dev), ar0,
+         ac0),
     ]
     return (gridp, ty0, tx0, jy, jx, level.bg_index.to(i32),
             level.theme.to(i32), ST["bg_bank"], ST["tr_tab"],

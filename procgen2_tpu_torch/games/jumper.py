@@ -15,10 +15,10 @@ scene kernel, with the compass HUD blended over it and its needle drawn by
 the stamp kernel (jumper.cpp:445-509).
 
 Every function works on a batch: `generate` on a batch of keys [L, 2]
-(one level each), `reset`/`step`/`observe_batch` on a batch of envs. The
-random draws are the JAX package's, key for key (`..random`), and the
-needle's angle is XLA CPU's `arctan2` (`..trig.atan2f`), so a level, a
-state and an observation can be compared with it bit for bit.
+(one level each), `reset`/`step`/`observe_batch`/`observe` on a batch of
+envs. The random draws are the JAX package's, key for key (`..random`),
+and the needle's angle is XLA CPU's `arctan2` (`..trig.atan2f`), so a
+level, a state and an observation can be compared with it bit for bit.
 
 Modes (tilemap.cpp:80-87): easy 20, hard 40, memory 45 (no prune, no
 spikes).
@@ -108,7 +108,7 @@ _NEEDLE_R0 = _folded(_CS * 0.5 + _OFFY, _CS * 0.05, -16.0)
 class Config:
     mode: str = "easy"  # tilemap.h default (easy world_dim 20)
     # Render-only: camera phase quantization of the scene render
-    # (render/phases.py); 0 = exact continuous camera (not ported yet).
+    # (render/phases.py); 0 = the exact, continuous camera.
     scene_phases: int = 4
 
     @property
@@ -263,15 +263,39 @@ def _scene_tensors(qp, D, device):
     compass overlay in bf16."""
     SA = _scene_assets(qp, D)
     dev = torch.device(device)
-    banks = {k: C._premultiply_bank(v).to(dev)
-             for k, v in _stamp_banks().items()}
-    rgbp, a = _compass_overlay(C.OBS)
+    R = _observe_assets(device)
     bf16 = torch.bfloat16
     return dict(
         tile_bank=torch.from_numpy(SA["bank"]).to(bf16).to(dev),
         bg_bank=torch.from_numpy(SA["bgpad"]).to(bf16).to(dev),
         tr_tab=torch.from_numpy(SA["TRtab"]).to(dev),
-        banks=banks, kinds=SA["kinds"], themes=SA["themes"],
+        banks=R["banks"], kinds=SA["kinds"], themes=SA["themes"],
+        compass_rgbp=R["compass_rgbp"], compass_a=R["compass_a"])
+
+
+@functools.lru_cache(maxsize=None)
+def _observe_assets(device: str):
+    """The constant tensors of the exact renders on `device`: the atlas
+    and backgrounds (`C.bank`), the premultiplied stamp banks, the
+    compass overlay in bf16, and the atlas tables tile_lut [theme, kind]
+    (-1 transparent) and bunny_lut [pose]."""
+    A = _assets()
+    idx = A["idx"]
+    dev = torch.device(device)
+    tile_lut = np.full((NUM_TILE_THEMES, 4), -1, np.int64)
+    for t, th in enumerate(atlas_lib.CLIMBER_TILE_THEMES):
+        tile_lut[t, WALL_TOP] = idx[f"ctile_top_{th}"]
+        tile_lut[t, WALL_MID] = idx[f"ctile_mid_{th}"]
+    rgbp, a = _compass_overlay(C.OBS)
+    bf16 = torch.bfloat16
+    return dict(
+        atlas=C.bank(A["atlas_p"], device), bgs=C.bank(A["bgs_p"], device),
+        idx=idx, tile_lut=tile_lut,
+        bunny_lut=torch.tensor([idx[f"bunny_{k}"] for k in
+                                ("stand", "jump", "walk1", "walk2")],
+                               device=dev),
+        banks={k: C._premultiply_bank(v).to(dev)
+               for k, v in _stamp_banks().items()},
         compass_rgbp=torch.from_numpy(rgbp).to(bf16).to(dev),
         compass_a=torch.from_numpy(a).to(bf16).to(dev))
 
@@ -606,16 +630,135 @@ def step(cfg: Config, state: State, action):
 # Rendering (jumper.cpp:445-509)
 # ---------------------------------------------------------------------------
 
-def observe(cfg: Config, state: State):
-    raise NotImplementedError(
-        "single-env jumper.observe needs the exact render paths: ROADMAP "
-        "A, 'exact and window-resolution render paths'")
+def observe(cfg: Config, state: State, size: int = C.OBS):
+    """Each env's frame at size x size by the exact render (jumper.cpp:
+    445-509): background, themed walls, the dust particles, spikes, the
+    carrot and the bunny, the camera spanning the same world at any size;
+    then the compass HUD in screen pixels, whose size does not scale with
+    the target (jumper.cpp:487: 60 px on any surface). uint8
+    [N, size, size, 3]."""
+    R = _observe_assets(str(state.pos.device))
+    atlas, idx = R["atlas"], R["idx"]
+    level = state.level
+    N = state.pos.shape[0]
+    dev = state.pos.device
+    f32 = torch.float32
+    cam_x = state.pos[:, 0]
+    cam_y = state.pos[:, 1] - 0.5  # common_systems.cpp:180-181
+    # window renders scale the zoom (render_game)
+    wx, wy = C.camera_coords(PPU * (size / 64.0), cam_x, cam_y, size)
+
+    img = C.clear(N, size, dev)
+    img = C.draw_background(img, R["bgs"], level.bg_index, wx, wy)
+    # out of bounds is a wall (tilemap.h:84-87)
+    img = C.draw_tiles(img, level.grid, R["tile_lut"], atlas, wx, wy,
+                       oob_tile=WALL_MID, theme=level.theme)
+
+    # the dust, after the tiles and before the sprites (jumper.cpp:470-472):
+    # fading and shrinking (common_systems.cpp:281-303). XLA CPU fuses
+    # 0.4 * ratio + 0.6; the size is traced, so the rect divides by it
+    ratio, centre = _dust(state)
+    for i in range(NUM_PARTICLES):
+        sc = prng._fma32(ratio[:, i], 0.4, 0.6) * 0.45
+        img = C.draw_sprite(img, atlas, idx["particle_circle"],
+                            centre[:, i, 0] - 0.5 * sc,
+                            centre[:, i, 1] - 0.5 * sc, sc, sc, wx, wy,
+                            alive=state.part_life[:, i] > 0.0,
+                            alpha=0.5 * (1.0 - ratio[:, i]))
+    # spikes: z=1, the sub-cell placement baked into the art (tilemap.cpp:49)
+    spikes = torch.where(level.spike_grid, 0, -1)
+    img = C.draw_tiles(img, spikes, [idx["spikeman"]], atlas, wx, wy,
+                       oob_tile=-1)
+    img = C.draw_sprite(img, atlas, idx["carrot"],
+                        level.goal_pos[:, 0] - 0.5, level.goal_pos[:, 1] - 0.5,
+                        1.0, 1.0, wx, wy)
+    # the bunny: per-pose scale and offset (common_systems.cpp:204-243)
+    pose = _pose(state)
+    jumping = pose == 1
+    scale = torch.where(jumping, 0.6, 0.5)
+    img = C.draw_sprite(
+        img, atlas, R["bunny_lut"][pose.long()],
+        state.pos[:, 0] - 0.25 + torch.where(jumping, -0.05, 0.0),
+        state.pos[:, 1] - 1.0 + torch.where(jumping, 0.25, 0.2),
+        scale, scale * 1.33, wx, wy, flip_x=~state.face_forward)
+
+    # the compass HUD in screen pixels (jumper.cpp:473-509)
+    px, py = C.pixel_coords(N, size, dev)
+    to_goal = level.goal_pos - state.pos
+    tx, ty = to_goal[:, 0], to_goal[:, 1]
+    # sqrt(x**2 + y**2): in this scalar code XLA CPU fuses x * x into the
+    # add (the batched renders round each op)
+    dist = torch.sqrt(prng._fma32(tx, tx, ty * ty))
+    inv = 1.0 / torch.clamp(dist, min=1e-4)
+    ratio_bar = torch.clamp(dist * C.recip32(cfg.world_dim * 1.414), max=1.0)
+
+    def const(v):
+        return torch.full((N,), v, dtype=f32, device=dev)
+    x0 = const(size - _CS + _OFFX)
+    img = C.draw_sprite(img, atlas, idx["compass_circle"], x0, const(_OFFY),
+                        _CS, _CS, px, py)
+    # the needle, rotated about its centre by the angle to the goal: XLA
+    # CPU folds the top-left's constant with the half size, in f32, and
+    # fuses cs/4 * dir into the add
+    img = C.draw_sprite(
+        img, atlas, idx["solid_yellow"], None, None, _CS * 0.5, _CS * 0.1,
+        px, py, rotation=atan2f(ty, tx),
+        centre=(prng._fma32(tx * inv, _CS * 0.25, _folded(
+                    size - _CS * 0.75 + _OFFX, _CS * 0.25)),
+                prng._fma32(ty * inv, _CS * 0.25, _folded(
+                    _CS * 0.5 + _OFFY, _CS * 0.05))))
+    # the distance bar (below a 64-px frame; on window renders)
+    img = C.draw_sprite(img, atlas, idx["solid_yellow"], x0,
+                        const(_CS + _OFFY), _CS * ratio_bar, _CS * 0.15, px,
+                        py, alive=ratio_bar > 0.0)
+    return C.finalize(img)
 
 
 def _observe_exact(cfg: Config, states: State):
-    raise NotImplementedError(
-        "jumper with scene_phases=0 needs the exact render paths: ROADMAP "
-        "A, 'exact and window-resolution render paths'")
+    """The exact-camera batched render (`scene_phases=0`): the camera at
+    (x, y - 0.5) unsnapped; the background, the themed walls from the
+    kind field (spikes merged in as their own kind; out of bounds is a
+    wall), the dust and the carrot, the spikes, the bunny, the compass
+    circle and the needle. The stamps go through
+    `compositor.composite_stamps`: the dust (K = 10, P = 8), the carrot
+    and the bunny (K = 1) take the matmul semantics; the needle (P = 32)
+    is B3 on the card."""
+    R = _observe_assets(str(states.pos.device))
+    level = states.level
+    N = states.pos.shape[0]
+    dev = states.pos.device
+    i32 = torch.int32
+    cam_x = states.pos[:, 0]
+    cam_y = states.pos[:, 1] - 0.5
+    wx, wy = C.camera_coords(PPU, cam_x, cam_y)
+    img = C.draw_background_batch(R["bgs"], level.bg_index, wx, wy)
+    D = cfg.world_dim
+    sel = C.tile_selectors(wx, wy, D, D)
+    merged = torch.where(level.spike_grid, SPIKE, level.grid).to(torch.int8)
+    G = C.kind_field(merged, sel, WALL_MID)
+    atlas = R["atlas"]
+    lut = torch.from_numpy(R["tile_lut"]).to(dev)[level.theme.long()]
+    for kind in (WALL_TOP, WALL_MID):
+        img = C.kind_layer(img, G == kind, atlas[lut[:, kind]], sel)
+
+    def pix(centres):
+        return _round(*C.stamp_origin(centres, cam_x, cam_y, PPU, 8))
+    banks = R["banks"]
+    ratio, pcentre = _dust(states)
+    pvar = 1 + torch.clamp((ratio * PART_BINS).to(i32), 0, PART_BINS - 1)
+    img = C.composite_stamps(img, banks["moving"], pvar, *pix(pcentre),
+                             alives=states.part_life > 0.0,
+                             alpha=0.5 * (1.0 - ratio))
+    # spikes above the dust in class z-order (z=1, jumper.cpp:471)
+    img = C.kind_layer(img, G == SPIKE, atlas[R["idx"]["spikeman"]], sel)
+    img = C.composite_stamps(img, banks["moving"],
+                             torch.zeros((N, 1), dtype=i32, device=dev),
+                             *pix(level.goal_pos[:, None]))
+    bvar, bcentre = _bunny(states)
+    img = C.composite_stamps(img, banks["bunny"], bvar, *pix(bcentre))
+    img = img * (1.0 - R["compass_a"]) + R["compass_rgbp"]
+    img = C.composite_stamps(img, banks["needle"], *_needle_stamp(states))
+    return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
 
 
 def obs_space(cfg: Config):
@@ -628,10 +771,10 @@ def action_space(cfg: Config):
 
 def observe_batch(cfg: Config, states: State):
     """Planar uint8 [N, 3, 64, 64]: the quantized-phase scene render (the
-    throughput path); `scene_phases=0` (exact camera) is not ported yet.
+    throughput path), or with `scene_phases=0` the exact-camera render.
     The distance bar of the reference's HUD lands at obs y 69.6, off the
     64-px frame (jumper.cpp:503-509), so it draws nothing here."""
-    if C.OBS == 64 and cfg.scene_phases > 0:
+    if cfg.scene_phases > 0:
         return _observe_scene(cfg, states)
     return _observe_exact(cfg, states)
 
@@ -655,15 +798,20 @@ def _dust(states: State):
     return ratio, centre
 
 
+def _pose(states: State):
+    """The bunny's pose int32 [N]: 0 stand, 1 jump, 2/3 the walk frames."""
+    return torch.where(
+        (torch.abs(states.vel[:, 0]) < 0.01) & states.on_ground, 0,
+        torch.where(~states.on_ground, 1,
+                    torch.where(states.anim_t > 0.5, 3, 2))).to(torch.int32)
+
+
 def _bunny(states: State):
     """The bunny's stamp variant int32 [N, 1] (pose x 2 + flipped) and
     render centre f32 [N, 1, 2] (per-pose scale and offset,
     common_systems.cpp:204-243)."""
     i32 = torch.int32
-    pose = torch.where(
-        (torch.abs(states.vel[:, 0]) < 0.01) & states.on_ground, 0,
-        torch.where(~states.on_ground, 1,
-                    torch.where(states.anim_t > 0.5, 3, 2))).to(i32)
+    pose = _pose(states)
     var = (pose * 2 + (~states.face_forward).to(i32))[:, None]
     jumping = pose == 1
     bscale = torch.where(jumping, 0.6, 0.5)

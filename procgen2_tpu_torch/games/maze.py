@@ -11,9 +11,10 @@ cells over, as the reference's unclamped `action / 3 - 1` does
 and mouse in the reference's order (maze.cpp:386-414).
 
 Every function works on a batch: `generate` on a batch of keys [L, 2]
-(one level each), `reset`/`step`/`observe_batch` on a batch of envs. The
-random draws are the JAX package's, key for key (`..random`), so a level,
-a state and an observation can be compared with it bit for bit.
+(one level each), `reset`/`step`/`observe_batch`/`observe` on a batch of
+envs. The random draws are the JAX package's, key for key (`..random`),
+so a level, a state and an observation can be compared with it bit for
+bit.
 
 Modes (tilemap.cpp:35-47): easy 15x15 view 15; hard 25x25 view 25 (the
 reference's default, tilemap.h:41); memory 31x31 view 8 with an
@@ -223,10 +224,52 @@ def step(cfg: Config, state: State, action):
 # Rendering (maze.cpp:386-414): the kind field
 # ---------------------------------------------------------------------------
 
-def observe(cfg: Config, state: State):
-    raise NotImplementedError(
-        "single-env maze.observe needs the exact render paths: ROADMAP A, "
-        "'exact and window-resolution render paths'")
+@functools.lru_cache(maxsize=None)
+def _observe_assets(device: str):
+    """The exact render's atlas u8 [A, 4, S, S], backgrounds u8
+    [B, 3, H, W] (both on `device`), sprite indices and tile lut."""
+    atlas, idx, bgs = _assets()
+    return dict(atlas=C.bank(atlas, device), bgs=C.bank(bgs, device),
+                idx=idx, lut=[-1, idx["maze_wall"]])
+
+
+def observe(cfg: Config, state: State, size: int = C.OBS):
+    """Each env's frame at size x size by the exact render (maze.cpp:
+    386-414): background, walls, cheese and mouse over the whole frame,
+    the camera spanning the same world at any size. uint8
+    [N, size, size, 3]."""
+    R = _observe_assets(str(state.pos.device))
+    level = state.level
+    N = state.pos.shape[0]
+    dev = state.pos.device
+    wd = cfg.world_dim
+    ppu = size / cfg.visibility  # maze.cpp:397: zoom fits the visible width
+    center = wd / 2.0
+    if cfg.agent_centered:
+        # the camera follows the agent once stepping begins
+        # (common_systems.cpp:120-123); the first frame after reset uses
+        # the map centre (maze.cpp:436-437)
+        cam_x = torch.where(state.t > 0, state.pos[:, 0], center)
+        cam_y = torch.where(state.t > 0, state.pos[:, 1], center)
+    else:
+        cam_x = cam_y = torch.full((N,), center, dtype=torch.float32,
+                                   device=dev)
+    wx, wy = C.camera_coords(ppu, cam_x, cam_y, size)
+
+    img = C.clear(N, size, dev)
+    img = C.draw_background(img, R["bgs"], level.bg_index, wx, wy)
+    img = C.draw_tiles(img, level.grid, R["lut"], R["atlas"], wx, wy,
+                       oob_tile=WALL)
+    # the cheese: offset (-0.48, -0.5), scale 0.95 (tilemap.cpp:95)
+    img = C.draw_sprite(img, R["atlas"], R["idx"]["cheese"],
+                        level.goal_pos[:, 0] - 0.48,
+                        level.goal_pos[:, 1] - 0.5, 0.95, 0.95, wx, wy)
+    # the agent: 1x1 at pos, flipped when facing forward
+    # (common_systems.cpp:138-149)
+    img = C.draw_sprite(img, R["atlas"], R["idx"]["mouse"],
+                        state.pos[:, 0] - 0.5, state.pos[:, 1] - 0.5, 1.0,
+                        1.0, wx, wy, flip_x=state.face_forward)
+    return C.finalize(img)
 
 
 def obs_space(cfg: Config):

@@ -12,7 +12,9 @@ game's module handing out every value it rounds, in call order.
 `onehot_inputs(fn, *args)` runs `fn` jitted with the compositor's
 `_onehot` handing out the selector indices (and masks) it takes, in call
 order: the kind-field renders of maze and chaser build their constant
-tables from them."""
+tables from them, and the exact renders' selectors are held to them.
+Calls made inside a `fori_loop` body (the compositor's `draw_sprites`)
+are left out: their values live in the loop, not in the function."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,10 +72,22 @@ def onehot_inputs(fn, *args):
     where the call gives none)."""
     calls = []
     onehot = jC._onehot
+    fori_loop = jax.lax.fori_loop
+    depth = [0]
 
     def handing_out(idx, n, valid=None):
-        calls.append((idx, n, valid))
+        if depth[0] == 0:
+            calls.append((idx, n, valid))
         return onehot(idx, n, valid)
+
+    def counting_loop(lo, hi, body, init):
+        def inside(i, x):
+            depth[0] += 1
+            try:
+                return body(i, x)
+            finally:
+                depth[0] -= 1
+        return fori_loop(lo, hi, inside, init)
 
     @jax.jit
     def capture(*a):
@@ -83,6 +97,7 @@ def onehot_inputs(fn, *args):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jC, "_onehot", handing_out)
+        mp.setattr(jax.lax, "fori_loop", counting_loop)
         got = capture(*args)
     return [(np.asarray(i), n, None if v is None else np.asarray(v))
             for (i, v), (_, n, _) in zip(got, calls)]

@@ -42,6 +42,7 @@ from procgen2_tpu.render import stamp_kernel as jsk
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import bossfight as tb
 from procgen2_tpu_torch.utils import convert
+import render_parity as RP
 
 NUM_LEVELS, N, T_LOCAL, T_FREE = 1024, 8, 40, 60
 LEVEL_FIELDS = [f.name for f in dataclasses.fields(tb.Level)]
@@ -367,8 +368,100 @@ def test_death_lanes_end_and_restart(env_run):
     assert tts.info["returned_episode_return"][:2].tolist() == [-10.0, 10.0]
 
 
-def test_observe_raises():
-    lv = tb.generate(tb.Config(), R.split(R.key(0), 2))
-    st = tb.reset(tb.Config(), lv, R.split(R.key(1), 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A, item 7"):
-        tb.observe(tb.Config(), st)
+# ---------------------------------------------------------------------------
+# The exact renders (tests/render_parity.py): observe at 64 and 128 px,
+# Environment.render, the selectors against the JAX render's `_onehot`
+# arguments
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_observe_matches_jax(size):
+    st = RP.check_observe("bossfight", size=size, n=4, steps=40, fire=0.5)
+    g = convert.state(tb, st.game, "cpu")
+    window = tb._window(g.bb_next, g.bb_num, tb.NUM_B_BULLETS)
+    assert (window & (g.bb_frame == 0)).any()  # rotated boss bullets
+    assert (window & (g.bb_frame >= 1)).any()  # and their explosions
+    assert (g.ab_num > 0).any()
+
+
+@pytest.mark.parametrize("t", [22, 39])
+def test_observe_matches_jax_late(local, t):
+    """The single-env observe on the rollout's frames with damage
+    explosions and an unshielded boss (step 39)."""
+    jst = local[t][1][0]
+    f = jax.jit(functools.partial(jb.observe, jb.Config()))
+    want = np.stack([np.asarray(f(jax.tree.map(lambda x: x[i], to_jax(jst))))
+                     for i in range(N)])
+    got = tb.observe(tb.Config(), convert.state(tb, jst, "cpu"))
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_observe_selectors_match_the_jax_render():
+    RP.check_selectors("bossfight", n=4, steps=40, fire=0.5)
+
+
+@pytest.mark.parametrize("env_index", [0, 1])
+def test_render_matches_jax(env_index):
+    RP.check_render("bossfight", env_index=env_index, n=4, steps=40, fire=0.5)
+
+
+# ---------------------------------------------------------------------------
+# mode="easy" (common_systems.cpp:104, 202): half the boss bullets' speed
+# and a shorter shield jitter; held like the default mode
+# ---------------------------------------------------------------------------
+
+EASY_J, EASY_T = jb.Config(mode="easy"), tb.Config(mode="easy")
+T_EASY = 8
+
+
+@pytest.fixture(scope="module")
+def easy_run():
+    """A 64-level easy bank from both sides, and T_EASY steps of N envs
+    each side from its own state (reset from the bank's first N levels,
+    the default mode's start lanes), with their observe_batch inputs."""
+    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(9), i))(
+        jnp.arange(64, dtype=jnp.uint32))
+    jl = np_tree(jax.jit(jax.vmap(functools.partial(jb.generate, EASY_J)))(
+        keys))
+    tl = tb.generate(EASY_T, R.fold_in(R.key(9), torch.arange(64)))
+    jstep = jax.jit(jax.vmap(functools.partial(jb.step, EASY_J)))
+    st = start_state(jl)
+    jst, tst = to_jax(st), convert.state(tb, st, "cpu")
+    acts = actions(T_EASY, seed=5)
+    steps = []
+    for t in range(T_EASY):
+        jst, jr, jd, _ = jstep(jst, jnp.asarray(acts[t]))
+        tst, tr, td, _ = tb.step(EASY_T, tst, torch.from_numpy(acts[t]))
+        steps.append((np_tree(jst), jr, jd, tst, tr, td))
+    return jl, tl, steps, jst
+
+
+@pytest.mark.parametrize("field", LEVEL_FIELDS)
+def test_easy_generate_matches(easy_run, field):
+    jl, tl, _, _ = easy_run
+    same(getattr(jl, field), getattr(tl, field), field)
+
+
+@pytest.mark.parametrize("t", range(T_EASY))
+def test_easy_steps_match(easy_run, t):
+    """Every field, reward and termination exact at every step."""
+    want, jr, jd, got, tr, td = easy_run[2][t]
+    for f in STATE_FIELDS:
+        same(getattr(want, f), getattr(got, f), f"step {t}: {f}")
+    same(jr, tr, f"step {t}: reward")
+    same(jd, td, f"step {t}: done")
+
+
+def test_easy_observe_matches_jax(easy_run, jax_stamp_kernel):
+    """observe_batch (the TPU's stamp semantics) and the single-env
+    observe after the last step."""
+    _, _, steps, jst = easy_run
+    want = np.asarray(jax.jit(functools.partial(jb.observe_batch, EASY_J))(
+        jst))
+    got = tb.observe_batch(EASY_T, steps[-1][3])
+    np.testing.assert_array_equal(want, got.numpy())
+    f = jax.jit(functools.partial(jb.observe, EASY_J))
+    want = np.stack([np.asarray(f(jax.tree.map(lambda x: x[i], jst)))
+                     for i in range(N)])
+    np.testing.assert_array_equal(want, tb.observe(EASY_T,
+                                                   steps[-1][3]).numpy())

@@ -45,6 +45,7 @@ from procgen2_tpu_torch.gen import kruskal as tkruskal
 from procgen2_tpu_torch.gen import rooms as trooms
 from procgen2_tpu_torch.physics import tiles as ttiles
 from procgen2_tpu_torch.utils import convert
+import render_parity as RP
 
 NUM_LEVELS, N, T = 64, 8, 6
 LEVEL_FIELDS = [f.name for f in dataclasses.fields(tcave.Level)]
@@ -521,10 +522,34 @@ def test_chip_smoke_lane_placement_needs_a_hazard(run):
         chip_smoke.place_caveflyer_lanes(bare, N)
 
 
-def test_unported_render_paths_raise(banks):
-    lv = convert.level(tcave, jax.tree.map(lambda a: a[:2], banks[0]), "cpu")
-    st = tcave.reset(tcave.Config(), lv, R.split(R.key(0), 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcave.observe(tcave.Config(), st)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcave.observe_batch(tcave.Config(scene_phases=0), st)
+# ---------------------------------------------------------------------------
+# The exact renders (tests/render_parity.py): observe at 64 and 128 px,
+# Environment.render, the selectors against the JAX render's `_onehot`
+# arguments, the scene_phases=0 render on the TPU's stamp path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_observe_matches_jax(size):
+    st = RP.check_observe("caveflyer", size=size, fire=0.4)
+    g = convert.state(tcave, st.game, "cpu")
+    window = tcave._ring_window(g.next_bullet, g.num_bullets)
+    assert (g.part_life > 0).any()  # rotated smoke at fractional alpha
+    assert (window & (g.b_frame == 0)).any()  # rotated lasers
+    assert (window & (g.b_frame >= 1)).any()  # explosions
+
+
+def test_observe_selectors_match_the_jax_render():
+    RP.check_selectors("caveflyer", fire=0.4)
+
+
+@pytest.mark.parametrize("env_index", [0, 1])
+def test_render_matches_jax(env_index):
+    RP.check_render("caveflyer", env_index=env_index, fire=0.4)
+
+
+def test_observe_exact_matches_jax():
+    RP.check_exact("caveflyer", fire=0.4)
+
+
+def test_observe_exact_selectors_match_the_jax_render():
+    RP.check_exact_selectors("caveflyer", fire=0.4)

@@ -37,6 +37,7 @@ from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import chaser as tchase
 from procgen2_tpu_torch.render import compositor as tC
 from procgen2_tpu_torch.utils import convert
+import render_parity as RP
 
 NUM_LEVELS, N, T = 16, 8, 8
 MODES = ("easy", "hard", "extreme")
@@ -511,9 +512,23 @@ def test_stamp_placement_matches_xla_near_half_pixels(banks, mode):
     same(_origins(d[pick], ppu, P)[..., 1], r0)
 
 
-def test_unported_render_paths_raise(banks):
-    lv = convert.level(tchase, jax.tree.map(lambda a: a[:2],
-                                            banks["easy"][0]), "cpu")
-    st = tchase.reset(tchase.Config(), lv, R.split(R.key(0), 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tchase.observe(tchase.Config(), st)
+# ---------------------------------------------------------------------------
+# The exact renders (tests/render_parity.py): observe at 64 and 128 px,
+# Environment.render, the selectors against the JAX render's `_onehot`
+# arguments
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_observe_matches_jax(size):
+    st = RP.check_observe("chaser", size=size, steps=60)
+    assert (st.game.hatch_timer >= tchase.HATCH_TIME).any()  # flyers
+    assert (st.game.eat_timer > 0).any()  # fleeing walkers
+
+
+def test_observe_selectors_match_the_jax_render():
+    RP.check_selectors("chaser", steps=60)
+
+
+@pytest.mark.parametrize("env_index", [0, 1])
+def test_render_matches_jax(env_index):
+    RP.check_render("chaser", env_index=env_index, steps=60)

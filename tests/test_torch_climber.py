@@ -24,6 +24,7 @@ from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import climber as tclimb
 from procgen2_tpu_torch.render import scene_kernel as tsk
 from procgen2_tpu_torch.utils import convert
+import render_parity as RP
 
 NUM_LEVELS, N, T = 64, 8, 6
 LEVEL_FIELDS = [f.name for f in dataclasses.fields(tclimb.Level)]
@@ -362,10 +363,31 @@ def test_expanded_field_scene_equals_raw_scene(banks, seed):
                                   X.float().numpy())
 
 
-def test_unported_render_paths_raise(banks):
-    lv = convert.level(tclimb, jax.tree.map(lambda a: a[:2], banks[0]), "cpu")
-    st = tclimb.reset(tclimb.Config(), lv, R.split(R.key(0), 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tclimb.observe(tclimb.Config(), st)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tclimb.observe_batch(tclimb.Config(scene_phases=0), st)
+# ---------------------------------------------------------------------------
+# The exact renders (tests/render_parity.py): observe at 64 and 128 px,
+# Environment.render, the selectors against the JAX render's `_onehot`
+# arguments, the scene_phases=0 render on the TPU's stamp path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_observe_matches_jax(size):
+    st = RP.check_observe("climber", size=size)
+    assert st.game.level.mob_alive.any()
+    assert (st.game.level.point_exists & ~st.game.point_taken).any()
+
+
+def test_observe_selectors_match_the_jax_render():
+    RP.check_selectors("climber")
+
+
+@pytest.mark.parametrize("env_index", [0, 1])
+def test_render_matches_jax(env_index):
+    RP.check_render("climber", env_index=env_index)
+
+
+def test_observe_exact_matches_jax():
+    RP.check_exact("climber")
+
+
+def test_observe_exact_selectors_match_the_jax_render():
+    RP.check_exact_selectors("climber")

@@ -15,6 +15,7 @@ from procgen2_tpu.games import coinrun as jcoin
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import coinrun as tcoin
 from procgen2_tpu_torch.utils import convert
+import render_parity as RP
 
 NUM_LEVELS, N, T = 64, 8, 6
 LEVEL_FIELDS = [f.name for f in dataclasses.fields(tcoin.Level)]
@@ -186,15 +187,6 @@ def test_cull_keeps_top_k_order_on_ties():
     np.testing.assert_array_equal(want, got.numpy())
 
 
-def test_unported_render_paths_raise(banks):
-    lv = convert.level(tcoin, jax.tree.map(lambda a: a[:2], banks[0]), "cpu")
-    st = tcoin.reset(tcoin.Config(), lv, R.split(R.key(0), 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcoin.observe(tcoin.Config(), st)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcoin.observe_batch(tcoin.Config(scene_phases=0), st)
-
-
 def _near_half(cam, rng, ppu, c):
     """f32 centres, one per camera coordinate of cam, whose pixel
     (centre - cam) * ppu + c lies within a few ulp of a half."""
@@ -240,3 +232,46 @@ def test_stamp_placement_matches_xla_near_half_pixels(banks):
     for w, g in zip(want["groups"], got[12]):
         for a, b in zip(w, g[1:]):
             same(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The exact renders (tests/render_parity.py): observe at 64 and 128 px,
+# Environment.render, the selectors against the JAX render's `_onehot`
+# arguments, the scene_phases=0 render on the TPU's stamp path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_observe_matches_jax(size):
+    st = RP.check_observe("coinrun", size=size)
+    assert st.game.level.mob_alive.any() and st.game.level.saw_alive.any()
+
+
+def test_observe_selectors_match_the_jax_render():
+    RP.check_selectors("coinrun")
+
+
+@pytest.mark.parametrize("env_index", [0, 1])
+def test_render_matches_jax(env_index):
+    RP.check_render("coinrun", env_index=env_index)
+
+
+def test_observe_exact_matches_jax():
+    RP.check_exact("coinrun")
+
+
+def test_observe_exact_selectors_match_the_jax_render():
+    RP.check_exact_selectors("coinrun")
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_observe_matches_jax_near_texel_edges(size):
+    """Cameras that put pixel centres within 2 ulp of texel edges, where
+    XLA CPU's camera coords differ by fusion: fused (c * f32(1/4.8) +
+    cam, one rounding) in the layers that compute them, cam + f32(c *
+    f32(1/4.8)) in the maps the saws' and mobs' loops read. Each form
+    alone fails here."""
+    RP.check_near_edges("coinrun", 0.5, tcoin.PPU, size)
+
+
+def test_observe_exact_matches_jax_near_texel_edges():
+    RP.check_near_edges("coinrun", 0.5, tcoin.PPU, exact=True)

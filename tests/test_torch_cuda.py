@@ -6,7 +6,11 @@ wrappers' checks, threefry words, cos32/sin32 and atan2f on the card,
 B1 on jumper's scene and B3 on jumper's needle group (P = 32, K = 1) at
 every offset across the frame's edges, and coinrun, bossfight, climber,
 caveflyer, jumper, chaser and maze (every mode) on the card against the
-same games on the CPU, chaser and maze launching no kernel.
+same games on the CPU, chaser and maze launching no kernel; the exact
+renders: coinrun, climber, caveflyer and jumper with scene_phases=0
+against the CPU (B3 launched once per kernel-path stamp group), B3 on
+their render inputs against its plain version, and every game's
+Environment.render at 512 px against the CPU.
 
 They skip without a card. This file imports no jax, so it runs on a
 machine without it; there, skip the repo's conftest (which sets jax up):
@@ -852,3 +856,52 @@ def test_chaser_and_maze_launch_no_kernel(dev):
                                 gs, env.cfg), mode="easy")]
     for r in runs:
         assert r[5] == [0, 0, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# The exact renders: scene_phases=0 through B3, and Environment.render
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("game", sorted(chip_smoke.EXACT_GAMES))
+def test_exact_render_on_card_matches_cpu(dev, game):
+    """make(game, scene_phases=0) on the card against the CPU: bank,
+    states, rewards and every obs pixel over reset and 4 steps of 16
+    envs; the card launches B3 once per kernel-path stamp group per
+    render and no other kernel."""
+    per_render = chip_smoke.EXACT_GAMES[game][3]
+
+    def place(gs, env):
+        return gs, []
+
+    cpu, gpu = (_kind_field_run(game, d, 16, 4, place, scene_phases=0)
+                for d in ("cpu", "cuda"))
+    _same_runs(cpu, gpu)
+    assert gpu[5] == [0, 0, per_render * 5, 0]  # reset + 4 steps
+
+
+@pytest.mark.parametrize("game", sorted(chip_smoke.EXACT_GAMES))
+def test_stamp_kernel_on_exact_inputs(dev, game):
+    """B3 on every stamp group of an exact render (64 envs, 4 steps in),
+    bitwise equal to its plain version."""
+    env = pt.make(game, scene_phases=0)
+    bank = env.generate_bank(R.key(5, env.device), 64)
+    state, _ = env.reset(bank, R.key(6, env.device), 64)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(4):
+        state, _ = env.step(bank, state, torch.randint(
+            0, 15, (64,), generator=g, device=dev, dtype=torch.int32),
+            render=False)
+    calls = chip_smoke.exact_render_calls(env.game, env.cfg, state.game)
+    assert len(calls) == chip_smoke.EXACT_GAMES[game][3]
+    for img, groups in calls:
+        got = stk.composite(img, groups)
+        want = stk.composite_reference(img, groups)
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("game", pt.GAMES)
+def test_window_render_on_card_matches_cpu(dev, game):
+    """Environment.render(state, 512, env_index) on the card for env 0
+    and 1: no kernel launched, bitwise equal to the CPU's render of the
+    same state."""
+    chip_smoke.window_render_check(game, dev, n=4, steps=4)

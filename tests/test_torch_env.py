@@ -233,15 +233,14 @@ def test_make_rejects_what_is_not_ported():
     env = pt.make("coinrun", device="cpu")
     with pytest.raises(ValueError):
         env.generate_bank(pt.random.key(0, "meta"), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        env.render(None)
 
 
 def test_port_imports_no_jax():
     """The port runs where jax is not installed, and uses nothing of the
     JAX package: importing it and running a step of every ported game
     (jumper's with its maze generator and atan2f; chaser's and maze's
-    kind-field renders),
+    kind-field renders) and its window render, the exact-camera renders
+    (scene_phases=0),
     `compositor.stamps_from_pixel_bank` and `scene_kernel.scene` loads
     neither jax nor flax nor the JAX package, and no module in
     sys.modules comes from a file under procgen2_tpu/ (which a load by
@@ -268,6 +267,12 @@ def test_port_imports_no_jax():
             bank = env.generate_bank(pt.random.key(0), 2)
             state, ts = env.reset(bank, pt.random.key(1), 2)
             state, ts = env.step(bank, state, torch.full((2,), 9, dtype=torch.int32))
+            assert ts.obs.shape == (2, 64, 64, 3)
+            assert env.render(state, 64, 1).shape == (64, 64, 3)
+        for game in ("coinrun", "caveflyer", "jumper", "climber"):
+            xenv = pt.make(game, device="cpu", scene_phases=0)
+            xbank = xenv.generate_bank(pt.random.key(0), 2)
+            _, ts = xenv.reset(xbank, pt.random.key(1), 2)
             assert ts.obs.shape == (2, 64, 64, 3)
         from procgen2_tpu_torch.games import climber
         from procgen2_tpu_torch.render import compositor, scene_kernel

@@ -39,6 +39,7 @@ from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import jumper as tjump
 from procgen2_tpu_torch.render import compositor as tC
 from procgen2_tpu_torch.utils import convert
+import render_parity as RP
 
 NUM_LEVELS, N, T = 16, 8, 8
 LEVEL_FIELDS = [f.name for f in dataclasses.fields(tjump.Level)]
@@ -681,10 +682,38 @@ def test_particle_scale_reaches_b1_in_f32(banks):
     assert not torch.equal(frac, frac.to(torch.bfloat16).float())
 
 
-def test_unported_render_paths_raise(banks):
-    lv = convert.level(tjump, jax.tree.map(lambda a: a[:2], banks[0]), "cpu")
-    st = tjump.reset(tjump.Config(), lv, R.split(R.key(0), 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tjump.observe(tjump.Config(), st)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tjump.observe_batch(tjump.Config(scene_phases=0), st)
+# ---------------------------------------------------------------------------
+# The exact renders (tests/render_parity.py): observe at 64 and 128 px,
+# Environment.render, the selectors against the JAX render's `_onehot`
+# arguments, the scene_phases=0 render on the TPU's stamp path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_observe_matches_jax(size):
+    st = RP.check_observe("jumper", size=size)
+    assert (st.game.part_life > 0).any()  # the dust, at fractional alpha
+
+
+def test_observe_selectors_match_the_jax_render():
+    RP.check_selectors("jumper")
+
+
+@pytest.mark.parametrize("env_index", [0, 1])
+def test_render_matches_jax(env_index):
+    RP.check_render("jumper", env_index=env_index)
+
+
+def test_observe_exact_matches_jax():
+    RP.check_exact("jumper")
+
+
+def test_observe_exact_selectors_match_the_jax_render():
+    RP.check_exact_selectors("jumper")
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_observe_matches_jax_near_texel_edges(exact):
+    """Cameras that put pixel centres within 2 ulp of texel edges: every
+    layer of jumper's renders computes its camera coords fused
+    (c * f32(1/4.8) + cam, one rounding); the unfused form fails here."""
+    RP.check_near_edges("jumper", 0.5, tjump.PPU, exact=exact)

@@ -33,6 +33,7 @@ from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import maze as tmaze
 from procgen2_tpu_torch.render import compositor as tC
 from procgen2_tpu_torch.utils import convert
+import render_parity as RP
 
 NUM_LEVELS, N, T = 16, 8, 8
 MODES = ("easy", "hard", "memory")
@@ -401,9 +402,29 @@ def test_constant_tables_match_the_jax_render(banks, mode):
     assert (~tab["cu_ok"]).any() == (mode != "memory")
 
 
-def test_unported_render_paths_raise(banks):
-    lv = convert.level(tmaze, jax.tree.map(lambda a: a[:2], banks["easy"][0]),
-                       "cpu")
-    st = tmaze.reset(tmaze.Config(), lv, R.split(R.key(0), 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmaze.observe(tmaze.Config(), st)
+# ---------------------------------------------------------------------------
+# The exact renders (tests/render_parity.py): observe at 64 and 128 px,
+# Environment.render, the selectors against the JAX render's `_onehot`
+# arguments
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_observe_matches_jax(size):
+    st = RP.check_observe("maze", size=size)
+    assert (st.game.t > 0).all()
+
+
+def test_observe_selectors_match_the_jax_render():
+    RP.check_selectors("maze")
+
+
+@pytest.mark.parametrize("env_index", [0, 1])
+def test_render_matches_jax(env_index):
+    RP.check_render("maze", env_index=env_index)
+
+
+@pytest.mark.parametrize("mode", ["easy", "memory"])
+def test_observe_matches_jax_in_mode(mode):
+    """Memory mode's camera follows the agent (at the map centre on the
+    first frame); easy's is fixed."""
+    RP.check_observe("maze", (("mode", mode),), size=64)
