@@ -6,8 +6,10 @@ the render entry points of the stamp-sum and expanded-field scene kernels
 on climber's real inputs, the exact-camera renders (scene_phases=0) of
 coinrun, climber, caveflyer and jumper, every game's window render
 (Environment.render at 512 px), the rollout of every game as one CUDA
-graph of T steps, the bench, the Gym adapter, a checkpoint and the
-guards, and checks the results.
+graph of T steps, the rollout's graph table under fresh policies, the
+main paths at the other configs (hard, memory, easy_mode, coinrun's
+features off), `make_vec` and `make` of a game module, the bench, the
+Gym adapter, a checkpoint and the guards, and checks the results.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -143,14 +145,37 @@ Phases (any failure raises, so the exit code is non-zero and the final
      kernel group); the graph's and the eager loop's env-steps/s, the
      capture's seconds and the graph's pool, the device's idle share of a
      replay;
- 22. the bench: `tools.bench_cli.bench_game` for every game at 4096 envs
+ 22. the rollout's graph table (ROADMAP C3): 20 coinrun rollouts at 256
+     envs, T = 4, each with a fresh `functools.partial(policy, params)`,
+     each equal to its eager loop and reading its own params, with
+     `memory_reserved` after call 20 within the first graph's pool plus
+     10% of that after call 2, GRAPHS_PER_ENV graphs kept in one pool;
+     then graphs A and B (two banks, two policies) in that pool replayed
+     A, B, A, B, each equal to its eager loop;
+ 23. the main paths at the other configs (MODE_CASES: caveflyer and
+     jumper hard and memory, climber and coinrun easy_mode, coinrun with
+     its features off) at 1024 levels, 4096 envs, T = 8: the kernels'
+     launches counted (B1, and B3 for jumper, T + 1 times), the placed
+     lanes ending and restarting on step 0, peak device memory over bank,
+     reset and 8 steps; B1 (and B3 on jumper's needle) bitwise against
+     its plain version on the real inputs, timed beside its bound; then
+     the checks of phase 21 from the same bank and placed state (graph
+     vs eager, 64 envs on the card vs the CPU, the profiler's 8 B1 (and
+     B3) launches per replay, env-steps/s, pool, idle share);
+ 24. `make_vec("maze", 8192 envs, 2048 levels, mode="easy")` in one
+     process: bank, reset and rollout equal to `make("maze")`'s with
+     fold_in(key, 17) bitwise; `metrics` against float64 on the host;
+     the rollout's env-steps/s;
+ 25. `make(wave_game)` (a game module, not a name) on the card equal to
+     the CPU over 45 steps, no kernel launched;
+ 26. the bench: `tools.bench_cli.bench_game` for every game at 4096 envs
      and `procgen2_tpu_torch.bench`'s headline line (maze easy, 8192
      envs), each record printed;
- 23. the surface: `GymEnv("maze")` on the card equal to the CPU over 20
+ 27. the surface: `GymEnv("maze")` on the card equal to the CPU over 20
      steps; a checkpoint saved on the card between two rollouts, restored
      and continued, equal to the live continuation; `guards.checked_step`
      over 3 clean coinrun steps, then raising on a NaN in the state;
- 24. the script's total wall time, then the kernels' JSON line (with
+ 28. the script's total wall time, then the kernels' JSON line (with
      each kernel's least possible time on this card, `bound_ms`), then
      the `ok` line last.
 """
@@ -916,6 +941,16 @@ def place_jumper_lanes(gs, n):
     return dataclasses.replace(gs, pos=pos, vel=vel), lanes
 
 
+def place_jumper_carrot(gs, n):
+    """Of a jumper State in `memory` mode, which has no spikes: lane 0's
+    agent on its carrot, as `place_jumper_lanes` places it. Returns
+    (state, lanes)."""
+    pos, vel = gs.pos.clone(), gs.vel.clone()
+    pos[0] = gs.level.goal_pos[0] + torch.tensor([0.0, 0.5], device=pos.device)
+    vel[0] = 0.0
+    return dataclasses.replace(gs, pos=pos, vel=vel), [0]
+
+
 def place_chaser_lanes(gs):
     """Of a chaser State: lane 0 with every pellet eaten and every orb
     taken (nothing left: +10, done) and lane 1 with its first enemy
@@ -951,6 +986,31 @@ def hold_first_action(actions, lanes):
     actions = actions.clone()
     actions[0, lanes] = 4
     return actions
+
+
+FEATURES_OFF = {"allow_pit": False, "allow_crate": False, "allow_dy": False,
+                "allow_mobs": False}
+# The main paths at configs other than the default: the Procgen
+# benchmark's hard distribution, memory, easy_mode and coinrun with its
+# level features off. label -> (game, config, lane placement, kernel
+# launches in one T-step replay). tests/mode_parity.py holds the same
+# runs, placement included, against the JAX package on the CPU.
+MODE_CASES = {
+    "caveflyer hard": ("caveflyer", {"mode": "hard"}, place_caveflyer_lanes,
+                       {"scene_raw_kernel": T}),
+    "caveflyer memory": ("caveflyer", {"mode": "memory"},
+                         place_caveflyer_lanes, {"scene_raw_kernel": T}),
+    "jumper hard": ("jumper", {"mode": "hard"}, place_jumper_lanes,
+                    {"scene_raw_kernel": T, "stamp_composite_kernel": T}),
+    "jumper memory": ("jumper", {"mode": "memory"}, place_jumper_carrot,
+                      {"scene_raw_kernel": T, "stamp_composite_kernel": T}),
+    "climber easy": ("climber", {"easy_mode": True}, place_climber_lanes,
+                     {"scene_raw_kernel": T}),
+    "coinrun easy": ("coinrun", {"easy_mode": True}, place_on_hazards,
+                     {"scene_raw_kernel": T}),
+    "coinrun features off": ("coinrun", FEATURES_OFF, place_on_hazards,
+                             {"scene_raw_kernel": T}),
+}
 
 
 def wall_ms(fn, iters=5):
@@ -1044,8 +1104,8 @@ def same_tree(a, b, what):
     tree_map(lambda x, y: bad.append(tuple(x.shape))
              if not torch.equal(x.cpu(), y.cpu()) else None, a, b)
     if bad:
-        raise AssertionError(f"{what}: GPU and CPU differ in leaves of "
-                             f"shapes {bad}")
+        raise AssertionError(f"{what}: the two differ in leaves of shapes "
+                             f"{bad}")
 
 
 def make_bank(env, n_levels=NUM_LEVELS):
@@ -1142,7 +1202,7 @@ def cpu_rerun(game, bank, actions, obs_buf, states, out, place, lanes,
     auto-resets included."""
     cenv = pt.make(game, device="cpu", **cfg)
     cbank = cenv.generate_bank(pt.random.key(0), cenv._num_levels(bank))
-    same_tree(bank, cbank, f"{game} level bank")
+    same_tree(bank, cbank, f"{game} level bank, card vs CPU")
     cstate, _ = cenv.reset(cbank, pt.random.key(1), CPU_ENVS)
     cgs, clanes = place(cstate.game)
     if clanes != lanes:
@@ -1156,7 +1216,7 @@ def cpu_rerun(game, bank, actions, obs_buf, states, out, place, lanes,
                 and torch.equal(cts.terminated, out[t][1][:CPU_ENVS].cpu())):
             raise AssertionError(f"{game} step {t}: CPU and GPU rewards differ")
         same_tree(tree_map(lambda x: x[:CPU_ENVS], states[t]), cstate,
-                  f"{game} step {t}: env state")
+                  f"{game} step {t}: env state, card vs CPU")
 
 
 def build_kernels():
@@ -1943,8 +2003,12 @@ ROLLOUT_CASES = (
     ("maze", {"mode": "easy"}, {}),
     ("coinrun", {"scene_phases": 0}, {"stamp_composite_kernel": 2 * T}),
 )
-ROLLOUT_KERNELS = ("scene_raw_kernel", "scene_kernel", "stamp_composite_kernel",
-                   "stamp_sum_kernel")
+# each kernel's name in a profile, and its wrapper
+KERNEL_OF = {"scene_raw_kernel": scene_kernel.scene_raw,
+             "scene_kernel": scene_kernel.scene,
+             "stamp_composite_kernel": stamp_kernel.composite,
+             "stamp_sum_kernel": stamp_kernel.stamps}
+ROLLOUT_KERNELS = tuple(KERNEL_OF)
 ROLLOUT_CPU_ENVS = 64
 
 
@@ -1987,7 +2051,7 @@ def replay_profile(fn):
 
 
 def rollout_path(name, cfg, kernels, n_levels=NUM_LEVELS, n_envs=NUM_ENVS,
-                 replays=5):
+                 replays=5, label=None, made=None):
     """`dist.rollout` of T steps as one CUDA graph: captured (warm-up and
     capture timed, the graph's pool measured), then held bitwise against
     an eager `Environment.step` loop on the same state and the buffer's
@@ -1996,18 +2060,23 @@ def rollout_path(name, cfg, kernels, n_levels=NUM_LEVELS, n_envs=NUM_ENVS,
     one replay counted by the profiler (`kernels`: {name: launches}; the
     wrappers' counters see only the warm-up and the capture); the graph's
     and the eager loop's env-steps/s; the device's idle share of a
-    replay. Returns the numbers."""
+    replay. `made`: (env, bank, state) to start from instead of make,
+    generate_bank and reset. Returns the numbers."""
     from procgen2_tpu_torch.dist import rollout
     from procgen2_tpu_torch.dist.rollout import graphs
     from types import SimpleNamespace
 
-    label = name + ("" if not cfg.get("scene_phases", 1) == 0
-                    else " scene_phases=0")
-    env = pt.make(name, **cfg)
+    if label is None:
+        label = name + ("" if not cfg.get("scene_phases", 1) == 0
+                        else " scene_phases=0")
+    if made is None:
+        env = pt.make(name, **cfg)
+        bank = env.generate_bank(pt.random.key(0, env.device), n_levels)
+        state, _ = env.reset(bank, pt.random.key(1, env.device), n_envs)
+    else:
+        env, bank, state = made
     dev = env.device
-    bank = env.generate_bank(pt.random.key(0, dev), n_levels)
     vec = SimpleNamespace(env=env, bank=bank)
-    state, _ = env.reset(bank, pt.random.key(1, dev), n_envs)
     key = pt.random.key(5, dev)
     for w in KERNEL_WRAPPERS:
         w.launches = 0
@@ -2196,6 +2265,314 @@ def surface_phase():
     guards_check()
 
 
+# ---- the rollout's graph table under fresh policies (ROADMAP C3) ----
+
+def policy_net(params, policy_state, k):
+    """A policy as a learner binds it, `functools.partial(policy_net,
+    params)`: it reads params through the partial, not policy_state."""
+    return (params + pt.random.randint(k, params.shape, 0, 3)) % 15
+
+
+def policy_rollout(vec, state, key, policy, params, num_steps):
+    """`rollout` with `policy`, a `partial(policy_net, params)`, held
+    against the eager loop on its actions (every buffer field and the
+    final state), and its actions against the policy's on the same keys.
+    Returns the buffer."""
+    from procgen2_tpu_torch.dist import rollout
+    out = rollout(vec, state, key, num_steps, policy=policy)
+    want, st, outs = [], state, []
+    for t in range(num_steps):
+        key, k_act = pt.random.split(key).unbind(-2)
+        want.append(policy_net(params, None, k_act))
+        st, ts = vec.env.step(vec.bank, st, out[1].actions[t])
+        outs.append((ts.obs, out[1].actions[t], ts.reward, ts.terminated,
+                     ts.info["returned_episode_return"],
+                     ts.info["returned_episode_length"]))
+    if not torch.equal(out[1].actions, torch.stack(want)):
+        raise AssertionError("a graph rollout's actions are not its "
+                             "policy's")
+    same_buffers(out, (st, type(out[1])(*(torch.stack(x) for x in zip(*outs)))),
+                 "policy rollout: graph vs eager")
+    return out[1]
+
+
+def fresh_policy_rollouts(calls=20, n_envs=256, num_steps=4):
+    """`calls` rollouts of coinrun at n_envs, each with a fresh
+    `partial(policy_net, params)` and fresh params, as a learner binds its
+    weights per call: each captures a graph and is held by
+    `policy_rollout`. The device memory reserved after the last call may
+    exceed that after the second by at most the first graph's pool plus
+    10%, and once the table is full (the first eviction, call
+    GRAPHS_PER_ENV + 1) it grows by at most 10% of that pool: the memory
+    of evicted graphs is reused. The env keeps GRAPHS_PER_ENV graphs, all
+    in one pool. Returns the numbers."""
+    import functools
+    from types import SimpleNamespace
+
+    from procgen2_tpu_torch.dist.rollout import graphs
+    env = pt.make("coinrun")
+    dev = env.device
+    bank = env.generate_bank(pt.random.key(0, dev), 64)
+    state, _ = env.reset(bank, pt.random.key(1, dev), n_envs)
+    vec = SimpleNamespace(env=env, bank=bank)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved(dev)
+    reserved, pool = [], None
+    for i in range(calls):
+        params = (torch.arange(n_envs, dtype=torch.int32, device=dev) + i) % 15
+        policy_rollout(vec, state, pt.random.key(100 + i, dev),
+                       functools.partial(policy_net, params), params,
+                       num_steps)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(dev))
+        if pool is None:
+            [g] = graphs(env).values()
+            pool = graph_pool_bytes(g.graph)
+    log(f"C3: {calls} coinrun rollouts at {n_envs} envs, T = {num_steps}, "
+        f"each with a fresh partial(policy, params): each == its eager loop "
+        f"bitwise and read its own params; memory_reserved before "
+        f"{before / 2**20:.1f} MiB, after each call "
+        f"{[r / 2**20 for r in reserved]} MiB; the first graph's pool "
+        f"{'not measured' if pool is None else f'{pool / 2**20:.1f} MiB'}")
+    if pool is None or reserved[-1] - reserved[1] > 1.1 * pool:
+        raise AssertionError(f"C3: memory_reserved grew by "
+                             f"{reserved[-1] - reserved[1]} B from call 2 to "
+                             f"call {calls}, over 1.1 x the first graph's "
+                             f"pool ({pool} B)")
+    from procgen2_tpu_torch.dist.rollout import GRAPHS_PER_ENV
+    if reserved[-1] - reserved[GRAPHS_PER_ENV] > 0.1 * pool:
+        raise AssertionError(f"C3: memory_reserved grew by "
+                             f"{reserved[-1] - reserved[GRAPHS_PER_ENV]} B "
+                             f"after the table filled, over 0.1 x the first "
+                             f"graph's pool ({pool} B)")
+    table = graphs(env)
+    pools = {tuple(g.graph.pool()) for g in table.values()}
+    if len(table) != GRAPHS_PER_ENV or len(pools) != 1:
+        raise AssertionError(f"C3: the env keeps {len(table)} graphs in "
+                             f"{len(pools)} pools, expected {GRAPHS_PER_ENV} "
+                             "in one")
+    return dict(before=before, reserved=reserved, pool=pool)
+
+
+def interleaved_replays(n_envs=64, num_steps=4):
+    """Graphs A and B, captured in the env's one pool on two banks with
+    two policies, replayed A, B, A, B from other keys: each replay equals
+    its eager loop bitwise (`policy_rollout`)."""
+    import functools
+    from types import SimpleNamespace
+
+    from procgen2_tpu_torch.dist.rollout import graphs
+    env = pt.make("coinrun")
+    dev = env.device
+    vecs = [SimpleNamespace(env=env, bank=env.generate_bank(
+        pt.random.key(k, dev), 16)) for k in (0, 9)]
+    state, _ = env.reset(vecs[0].bank, pt.random.key(1, dev), n_envs)
+    params = [torch.full((n_envs,), v, dtype=torch.int32, device=dev)
+              for v in (0, 7)]
+    policies = [functools.partial(policy_net, p) for p in params]
+    for i in range(4):
+        policy_rollout(vecs[i % 2], state, pt.random.key(20 + i, dev),
+                       policies[i % 2], params[i % 2], num_steps)
+    table = graphs(env)
+    if len(table) != 2 or len({tuple(g.graph.pool())
+                               for g in table.values()}) != 1:
+        raise AssertionError("interleaved replays: expected 2 graphs in one "
+                             "pool")
+    log(f"C3: graphs A and B in one pool (two banks, two policies, coinrun "
+        f"at {n_envs} envs), replayed A, B, A, B: each == its eager loop "
+        "bitwise")
+
+
+# ---- the main paths at other configs (hard, memory, easy_mode, ...) ----
+
+def mode_path(label, n_levels=NUM_LEVELS, n_envs=NUM_ENVS, replays=3):
+    """The main path at MODE_CASES[label]: make -> generate_bank(n_levels)
+    -> reset(n_envs) -> the lanes placed -> T steps, the kernel wrappers'
+    counts set to 0 just before the reset and read after the last step
+    (each of the case's kernels T + 1 times, no other), the placed lanes
+    ending on step 0 and restarting, peak device memory over bank, reset
+    and the T steps; B1 (and for jumper B3 on its needle) held bitwise
+    against its plain version on the last step's inputs and timed beside
+    its bound; then `rollout_path` from the same bank and placed state.
+    Returns the numbers."""
+    name, cfg, place, kernels = MODE_CASES[label]
+    game = {"caveflyer": caveflyer, "jumper": jumper, "climber": climber,
+            "coinrun": coinrun}[name]
+    env = pt.make(name, **cfg)
+    dev = env.device
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    bank = env.generate_bank(pt.random.key(0, dev), n_levels)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    actions = torch.randint(0, 15, (T, n_envs), generator=g, device=dev,
+                            dtype=torch.int32)
+    torch.cuda.synchronize()
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    state, _ = env.reset(bank, pt.random.key(1, dev), n_envs)
+    gs, lanes = place(state.game, CPU_ENVS)
+    start = dataclasses.replace(state, game=gs)
+    st = start
+    for t in range(T):
+        st, ts = env.step(bank, st, actions[t])
+        if t == 0:
+            first = (st, ts)
+    torch.cuda.synchronize()
+    counted = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    peak = peak_gib()
+    want = {KERNEL_OF[k].__name__: T + 1 for k in kernels}
+    if counted != {w.__name__: want.get(w.__name__, 0)
+                   for w in KERNEL_WRAPPERS}:
+        raise AssertionError(f"{label}: the main path launched {counted}, "
+                             f"expected {want}")
+    st0, ts0 = first
+    for lane in lanes:
+        if not (bool(ts0.terminated[lane]) and int(st0.ep_length[lane]) == 0
+                and int(st0.game.t[lane]) == 0):
+            raise AssertionError(f"{label}: lane {lane} did not end and "
+                                 "restart on step 0")
+
+    inputs = game._scene_inputs(env.cfg, st.game)
+    err1, ms1, plain1 = scene_vs_plain(inputs, 20)
+    b1, by1 = scene_bound(inputs)
+    slots = [grp[1].shape[1] for grp in inputs[12]]
+    out = dict(label=label, lanes=lanes, launches=counted, peak_gib=peak,
+               b1=dict(ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
+                       slots=slots, err=err1))
+    log(f"{label}: main path at {n_envs} envs on {n_levels} levels, T = {T}: "
+        f"kernel launches {counted}; lanes {lanes} ended on step 0 and "
+        f"restarted; peak device memory over bank, reset and {T} steps "
+        f"{peak:.3f} GiB; B1 vs plain on its inputs (grid "
+        f"{tuple(inputs[0].shape)}, groups K = {slots}): bitwise equal, "
+        f"kernel {ms1:.4f} ms, plain {plain1:.4f} ms, bound {b1:.4f} ms "
+        f"({by1})")
+    if name == "jumper":
+        ST = jumper._scene_tensors(env.cfg.scene_phases, env.cfg.world_dim,
+                                   str(dev))
+        blended = jumper._compass(scene_kernel.scene_raw(*inputs), ST)
+        needle = [compositor.stamp_group(ST["banks"]["needle"],
+                                         *jumper._needle_stamp(st.game))]
+        err3, ms3, plain3 = stamps_vs_plain(blended, needle, 20)
+        b3, by3 = stamp_bound(blended, needle)
+        out["b3"] = dict(ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=by3,
+                         err=err3)
+        log(f"{label}: B3 vs plain on the needle: bitwise equal, kernel "
+            f"{ms3:.4f} ms, plain {plain3:.4f} ms, bound {b3:.4f} ms ({by3})")
+    gc.collect()
+    out["rollout"] = rollout_path(name, cfg, kernels, n_levels, n_envs,
+                                  replays=replays, label=label,
+                                  made=(env, bank, start))
+    return out
+
+
+# ---- make_vec on the card, W = 1 ----
+
+def vec_phase(n_envs=MAZE_ENVS, n_levels=MAZE_LEVELS):
+    """`make_vec("maze", n_envs, n_levels, mode="easy")` on the card
+    (one process): its bank, reset and rollout equal those of
+    `make("maze", mode="easy")` with the bank key fold_in(key, 17) and
+    the same keys, bitwise; `metrics` of a step with a goal lane and a
+    timeout lane ending equals the three numbers computed in float64 on
+    the host from the card's TimeStep (episodes_done exactly, the means
+    within 2^-22 relative: the sums of maze's 0 and 10 are exact, and each
+    mean is one f32 division); the rollout's env-steps/s. Returns them."""
+    from types import SimpleNamespace
+
+    from procgen2_tpu_torch.dist import make_vec, rollout
+    venv = make_vec("maze", num_envs=n_envs, num_levels=n_levels,
+                    mode="easy")
+    dev = venv.env.device
+    if (venv.world, venv.rank, venv.lo, venv.hi) != (1, 0, 0, n_envs):
+        raise AssertionError("make_vec in one process: not one rank over "
+                             "the whole batch")
+    vstate, vts = venv.reset(pt.random.key(0, dev))
+    env = pt.make("maze", mode="easy")
+    bank = env.generate_bank(prng.fold_in(pt.random.key(0, dev), 17),
+                             n_levels)
+    state, ts = env.reset(bank, pt.random.key(0, dev), n_envs)
+    same_tree(venv.bank, bank, "make_vec bank vs make")
+    same_tree(vstate, state, "make_vec reset state vs make")
+    if not torch.equal(vts.obs, ts.obs):
+        raise AssertionError("make_vec reset obs differ from make's")
+    key = pt.random.key(3, dev)
+    vout = rollout(venv, vstate, key, T)
+    same_buffers(vout, rollout(SimpleNamespace(env=env, bank=bank), state,
+                               key, T), "make_vec rollout vs make")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = vout[0]
+    for _ in range(3):
+        st, _ = rollout(venv, st, key, T)
+    torch.cuda.synchronize()
+    sps = 3 * T * n_envs / (time.perf_counter() - t0)
+
+    gs, lanes = place_maze_lanes(st.game, venv.env.cfg)
+    a = torch.zeros(n_envs, dtype=torch.int32, device=dev) + 4
+    _, sts = venv.step(dataclasses.replace(st, game=gs), a)
+    m = venv.metrics(sts)
+    r = sts.reward.double().cpu()
+    d = sts.terminated.cpu()
+    ret = sts.info["returned_episode_return"].double().cpu()
+    n = int(d.sum())
+    host = dict(reward_mean=float(r.mean()), episodes_done=n,
+                episode_return_mean=float((ret * d).sum() / max(n, 1))
+                if n else 0.0)
+    if int(m["episodes_done"]) != n or n < len(lanes):
+        raise AssertionError(f"make_vec metrics: episodes_done "
+                             f"{int(m['episodes_done'])}, host {n}")
+    for k in ("reward_mean", "episode_return_mean"):
+        if abs(float(m[k]) - host[k]) > 2.0 ** -22 * abs(host[k]):
+            raise AssertionError(f"make_vec metrics: {k} {float(m[k])!r}, "
+                                 f"host float64 {host[k]!r}")
+    log(f"vec: make_vec('maze', {n_envs} envs, {n_levels} levels, "
+        f"easy) on the card, W = 1: bank, reset and rollout == make('maze') "
+        f"with fold_in(key, 17) bitwise; rollout {sps:.1f} env-steps/s "
+        f"(3 replays of T = {T}); metrics {({k: float(v) for k, v in m.items()})} "
+        f"vs float64 on the host {host}")
+    return dict(steps_per_s=sps, metrics={k: float(v) for k, v in m.items()},
+                host=host)
+
+
+# ---- make(module): the example wave game on the card ----
+
+def module_phase(n_envs=256, steps=45):
+    """`make(wave_game)` on the card against `make(wave_game,
+    device="cpu")` from the same keys and actions: bank, reset obs and
+    every step's obs, reward and termination bitwise, past the horizon
+    (step 40) and its auto-reset. No kernel launches."""
+    from procgen2_tpu_torch.examples import wave_game
+
+    card, host = pt.make(wave_game), pt.make(wave_game, device="cpu")
+    dev = card.device
+    cbank = card.generate_bank(pt.random.key(0, dev), 8)
+    hbank = host.generate_bank(pt.random.key(0), 8)
+    same_tree(cbank, hbank, "wave game bank, card vs CPU")
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    cs, cts = card.reset(cbank, pt.random.key(1, dev), n_envs)
+    hs, hts = host.reset(hbank, pt.random.key(1), n_envs)
+    ends = 0
+    for t in range(steps + 1):
+        if not (torch.equal(cts.obs.cpu(), hts.obs)
+                and torch.equal(cts.reward.cpu(), hts.reward)
+                and torch.equal(cts.terminated.cpu(), hts.terminated)):
+            raise AssertionError(f"wave game step {t}: card and CPU differ")
+        ends += int(hts.terminated.sum())
+        if t < steps:
+            a = pt.random.randint(pt.random.key(50 + t), (n_envs,), 0, 15)
+            cs, cts = card.step(cbank, cs, a.to(dev))
+            hs, hts = host.step(hbank, hs, a)
+    same_tree(cs, hs, "wave game final state, card vs CPU")
+    if any(w.launches for w in KERNEL_WRAPPERS) or ends != n_envs:
+        raise AssertionError("wave game: a kernel launched, or not every "
+                             "env ended at the horizon")
+    log(f"module: make(wave_game) on the card == on the CPU over {steps} "
+        f"steps at {n_envs} envs (obs, reward, termination, final state; "
+        f"{ends} episode ends at the horizon)")
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device ----
@@ -2291,20 +2668,52 @@ def main():
             f"capture {r['capture_s']:.3f} s, pool {r['pool_bytes']} B, "
             f"replay {r['replay_ms']:.3f} ms, device {r['device_ms']} ms, "
             f"idle {r['idle']}")
-    # ---- 22. the bench: bench_cli per game, the headline line ----
+    # ---- 22. the rollout's graph table under fresh policies (C3) ----
+    fresh_policy_rollouts()
+    interleaved_replays()
+    gc.collect()
+    # ---- 23. the main paths at other configs, B1 and B3 on them ----
+    modes = []
+    for label in MODE_CASES:
+        modes.append(mode_path(label))
+        gc.collect()
+    for m in modes:
+        r = m["rollout"]
+        b3 = m.get("b3")
+        log(f"mode summary {m['label']}: graph {r['graph_steps_per_s']:.1f} "
+            f"env-steps/s, eager {r['eager_steps_per_s']:.1f}, replay "
+            f"{r['replay_ms']:.3f} ms, device {r['device_ms']} ms, idle "
+            f"{r['idle']}, pool {r['pool_bytes']} B, peak "
+            f"{m['peak_gib']:.3f} GiB; B1 {m['b1']['ms']:.4f} ms (bound "
+            f"{m['b1']['bound_ms']:.4f}, plain {m['b1']['plain_ms']:.4f}, K = "
+            f"{m['b1']['slots']})" + ("" if b3 is None else
+                                      f"; B3 {b3['ms']:.4f} ms (bound "
+                                      f"{b3['bound_ms']:.4f}, plain "
+                                      f"{b3['plain_ms']:.4f})"))
+    # ---- 24. make_vec on the card (one process) ----
+    vec_phase()
+    gc.collect()
+    # ---- 25. make(module): the example wave game ----
+    module_phase()
+    # ---- 26. the bench: bench_cli per game, the headline line ----
     bench_phase()
-    # ---- 23. the Gym adapter, a checkpoint, the guards ----
+    # ---- 27. the Gym adapter, a checkpoint, the guards ----
     surface_phase()
 
-    # ---- 24. result ----
-    # the main paths that run B1: coinrun, climber, caveflyer and jumper;
-    # B3: bossfight and jumper, and the four exact-camera paths
-    scene["launches"] += climber_launches + cave_launches + jump_b1
+    # ---- 28. result ----
+    # the main paths that run B1: coinrun, climber, caveflyer and jumper,
+    # and the other configs; B3: bossfight and jumper, the four
+    # exact-camera paths and jumper's other modes
+    scene["launches"] += (climber_launches + cave_launches + jump_b1
+                          + sum(m["launches"]["scene_raw"] for m in modes))
     scene["max_abs_err"] = max(scene["max_abs_err"], err_r, err1, err_c,
-                               err_j1)
-    stamp["launches"] += jump_b3 + sum(ex["launches"] for ex in exact.values())
+                               err_j1, *(m["b1"]["err"] for m in modes))
+    stamp["launches"] += (jump_b3
+                          + sum(ex["launches"] for ex in exact.values())
+                          + sum(m["launches"]["composite"] for m in modes))
     stamp["max_abs_err"] = max(stamp["max_abs_err"], serr_r, err_j3,
-                               *(ex["err"] for ex in exact.values()))
+                               *(ex["err"] for ex in exact.values()),
+                               *(m["b3"]["err"] for m in modes if "b3" in m))
     sums["max_abs_err"] = max(sums["max_abs_err"], err4_r)
     field["max_abs_err"] = max(field["max_abs_err"], err5_r)
     log(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s")

@@ -15,11 +15,15 @@ Quick start, the bench's maze shape:
     state, ts = env.step(bank, state, actions)  # ts.obs uint8 [8192, 64, 64, 3]
 
 A learner's loop, T steps as one CUDA graph on the card:
-    from types import SimpleNamespace
-    from procgen2_tpu_torch.dist import rollout
-    state, buf = rollout(SimpleNamespace(env=env, bank=bank), state,
-                         pt.random.key(2, env.device), num_steps=8)
-    # buf.obs uint8 [8, 8192, 64, 64, 3]
+    from procgen2_tpu_torch.dist import make_vec, rollout
+    venv = make_vec("maze", num_envs=8192, num_levels=2048, mode="easy")
+    state, ts = venv.reset(pt.random.key(1, venv.env.device))
+    state, buf = rollout(venv, state, pt.random.key(2, venv.env.device),
+                         num_steps=8)  # buf.obs uint8 [8, 8192, 64, 64, 3]
+
+Any module that implements the batched game protocol (core/env.py)
+plugs in as the built-in games do: `pt.make(module)`, as
+`procgen2_tpu_torch/examples/wave_game.py`.
 
 The single-env Gymnasium surface: `pt.GymEnv("maze")`.
 """
@@ -39,20 +43,23 @@ GAMES = ("coinrun", "bossfight", "climber", "caveflyer", "jumper", "chaser",
          "maze")
 
 
-def make(game: str, device="cuda", **config) -> Environment:
+def make(game, device="cuda", **config) -> Environment:
     """Environment for `game` on `device` ("cuda", the default, "cuda:1",
-    "cpu", ...); config kwargs go to the game's Config, `obs_format`
-    ("hwc" or "chw") to the Environment. A CUDA device must exist unless
-    the caller asks for the CPU: nothing falls back."""
-    if game not in GAMES:
-        raise ValueError(f"game {game!r} is not ported to PyTorch yet; "
-                         f"ported so far: {GAMES}")
+    "cpu", ...). `game` is a name in GAMES or any module that implements
+    the batched game protocol (core/env.py), as the JAX package's `make`
+    takes any module of its protocol. Config kwargs go to the game's
+    Config, `obs_format` ("hwc" or "chw") to the Environment. A CUDA
+    device must exist unless the caller asks for the CPU: nothing falls
+    back."""
+    if isinstance(game, str) and game not in GAMES:
+        raise ValueError(f"unknown game {game!r}; available: {GAMES}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but torch sees no "
                            "CUDA device")
     obs_format = config.pop("obs_format", "hwc")
-    mod = importlib.import_module(f".games.{game}", __name__)
+    mod = (importlib.import_module(f".games.{game}", __name__)
+           if isinstance(game, str) else game)
     return Environment(mod, mod.Config(**config), device,
                        obs_format=obs_format)
 

@@ -108,7 +108,14 @@ class Environment:
         return gs, k[:, 2]
 
     def reset(self, bank, key, num_envs: int):
-        gs, k_state = self._fresh(bank, prng.split(self._key(key), num_envs))
+        return self.reset_keys(bank, prng.split(self._key(key), num_envs))
+
+    def reset_keys(self, bank, keys):
+        """`reset` from each env's key [N, 2] (`reset` splits its key into
+        N): a ShardedEnv resets its rows of the global batch with their
+        rows of the split."""
+        num_envs = self._key(keys).shape[0]
+        gs, k_state = self._fresh(bank, keys)
         state = EnvState(
             game=gs,
             ep_return=torch.zeros(num_envs, dtype=torch.float32,

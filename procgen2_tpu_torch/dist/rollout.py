@@ -15,7 +15,15 @@ state, the key and the policy state are copied into the graph's own
 tensors, and what it returns is cloned from its outputs, so no later
 replay overwrites what a caller holds. The bank is read where it lies:
 a graph is replayed only for a bank whose tensors are the ones it was
-captured on (the same addresses, shapes, strides and dtypes). A step
+captured on (the same addresses, shapes, strides and dtypes).
+
+An Environment keeps at most GRAPHS_PER_ENV graphs, the least recently
+used evicted first, and all of them in one memory pool: a capture reuses
+the memory that earlier captures freed, and that an evicted graph held.
+Sharing is safe because the graphs replay one after another on one
+stream and a replay's outputs are cloned before any other graph runs: a
+graph's intermediates may lie where another graph's outputs were, but
+those outputs are read only right after their own replay. A step
 captured must make no host read and copy nothing from the host: the
 renders then leave out their dead-sprite skips
 (`compositor.host_reads_off`), and constants come from
@@ -27,6 +35,7 @@ a capture adds each kernel once, and a replay adds nothing.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import weakref
 from typing import Any, Callable
@@ -36,6 +45,8 @@ import torch
 from .. import random as prng
 from ..render import compositor
 from ..utils.tree import tree_leaves, tree_map
+
+GRAPHS_PER_ENV = 4  # captured rollouts kept per Environment
 
 
 @dataclasses.dataclass
@@ -81,7 +92,7 @@ class _Graph:
     """One captured rollout: static inputs, the graph and its outputs."""
 
     def __init__(self, inner, bank, state, key, num_steps, policy,
-                 policy_state):
+                 policy_state, pool):
         def clone(x):
             return x.clone() if isinstance(x, torch.Tensor) else x
 
@@ -99,7 +110,8 @@ class _Graph:
             _scan(*args)
         torch.cuda.current_stream(key.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph), compositor.host_reads_off():
+        with torch.cuda.graph(self.graph, pool=pool), \
+                compositor.host_reads_off():
             self.out = _scan(*args)
 
     def replay(self, state, key, policy_state):
@@ -114,36 +126,66 @@ class _Graph:
         return tree_map(torch.clone, self.out)
 
 
-# env.env (an Environment) -> {graph key: _Graph}; an env's graphs go
-# with it
-_GRAPHS: "weakref.WeakKeyDictionary[Any, dict]" = weakref.WeakKeyDictionary()
+class _Table:
+    """An Environment's captured rollouts: the memory pool they share and
+    the graphs by key, least recently used first."""
+
+    def __init__(self):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: "collections.OrderedDict[tuple, _Graph]" = \
+            collections.OrderedDict()
+
+
+# env.env (an Environment) -> its _Table; an env's graphs go with it
+_TABLES: "weakref.WeakKeyDictionary[Any, _Table]" = weakref.WeakKeyDictionary()
 
 
 def graphs(inner) -> dict:
-    """The captured rollouts of Environment `inner`, by their key."""
-    return _GRAPHS.setdefault(inner, {})
+    """The captured rollouts of Environment `inner`, by their key, least
+    recently used first."""
+    table = _TABLES.get(inner)
+    return {} if table is None else table.graphs
 
 
 def rollout(env, state, key, num_steps: int,
             policy: Callable[[Any, torch.Tensor], torch.Tensor] | None = None,
             policy_state: Any = None):
     """Collect `num_steps` of experience from any object with `.bank` (a
-    level bank) and `.env` (an Environment): (final_state, RolloutBuffer),
-    as the JAX package's `rollout`. `policy(policy_state, k_act) ->
-    actions [N]`; uniform-random actions on the device by default.
+    level bank) and `.env` (an Environment), such as a `ShardedEnv`:
+    (final_state, RolloutBuffer), as the JAX package's `rollout`.
+    `policy(policy_state, k_act) -> actions [N]`; uniform-random actions
+    on the device by default.
 
     On a CUDA device the T steps run as one CUDA graph, captured the first
     time for each (env, bank, N, T, policy) and replayed after; on the CPU
-    they run eagerly. The returned tensors are the caller's own."""
+    they run eagerly. The returned tensors are the caller's own.
+
+    A policy takes every tensor it reads through `policy_state`, which is
+    copied in before each replay. A replay reads any other tensor at the
+    address captured the first time: a closure rebound between calls to
+    new tensors is not seen, and the old ones may have been freed. The
+    graph is keyed on `id(policy)`, so a fresh policy object (a
+    `functools.partial(net, params)` built per call) captures anew, as
+    the JAX rollout traces anew on every call; the env keeps its
+    GRAPHS_PER_ENV most recently used graphs, so per-call policies cost
+    a capture each, not memory without bound. With a `ShardedEnv` over W
+    processes, each draws its own N/W uniform actions from `key`."""
     bank, inner = env.bank, env.env
     if inner.device.type != "cuda":
         return _scan(inner, bank, state, key, num_steps, policy,
                      policy_state)
     gkey = (num_steps, id(policy), _layout(state), _layout(key),
             _layout(policy_state), _layout(bank, addresses=True))
-    table = graphs(inner)
-    g = table.get(gkey)
-    if g is None:
-        g = _Graph(inner, bank, state, key, num_steps, policy, policy_state)
-        table[gkey] = g
+    table = _TABLES.get(inner)
+    if table is None:
+        table = _TABLES[inner] = _Table()
+    g = table.graphs.get(gkey)
+    if g is not None:
+        table.graphs.move_to_end(gkey)
+        return g.replay(state, key, policy_state)
+    while len(table.graphs) >= GRAPHS_PER_ENV:
+        table.graphs.popitem(last=False)  # its memory returns to the pool
+    g = _Graph(inner, bank, state, key, num_steps, policy, policy_state,
+               table.pool)
+    table.graphs[gkey] = g
     return g.replay(state, key, policy_state)

@@ -12,7 +12,10 @@ against the CPU (B3 launched once per kernel-path stamp group), B3 on
 their render inputs against its plain version, and every game's
 Environment.render at 512 px against the CPU; the learner-facing
 surface: `dist.rollout` as one CUDA graph against eager steps, a graph
-per bank, and a checkpoint round trip on the card.
+per bank, the graph table's bound and shared pool under fresh policies
+and interleaved replays, and a checkpoint round trip on the card; the
+main paths at the other configs (chip_smoke.MODE_CASES), make_vec in one
+process and make(wave_game) on the card.
 
 They skip without a card. This file imports no jax, so it runs on a
 machine without it; there, skip the repo's conftest (which sets jax up):
@@ -972,6 +975,51 @@ def test_graph_rollout_reads_a_new_bank(dev):
     _same([buf.obs, buf.rewards, buf.dones], [efields[0], efields[2],
                                               efields[3]])
     assert bool(buf.dones.any())  # the timeout restarts from the new bank
+
+
+def test_fresh_policies_stay_within_one_pool(dev):
+    """20 rollouts of coinrun at 256 envs, T = 4, each with a fresh
+    `functools.partial(policy, params)` and fresh params, as a learner
+    binds its weights per call: each captures a graph, equals the eager
+    loop bitwise and reads its own params; the device memory reserved
+    after call 20 exceeds that after call 2 by at most the first graph's
+    pool plus 10%, and grows by at most 10% of it once the table is full;
+    the env keeps GRAPHS_PER_ENV graphs in one pool
+    (chip_smoke.fresh_policy_rollouts). With a pool per graph and every
+    graph kept, each call reserved one more pool."""
+    chip_smoke.fresh_policy_rollouts()
+
+
+def test_graphs_sharing_a_pool_replay_interleaved(dev):
+    """Graphs A and B, captured in the env's one pool on two banks with
+    two policies, replayed A, B, A, B from other keys: each replay equals
+    its eager loop bitwise, though B's capture may have placed its
+    intermediates where A's were freed (chip_smoke.interleaved_replays)."""
+    chip_smoke.interleaved_replays()
+
+
+@pytest.mark.parametrize("label", list(chip_smoke.MODE_CASES))
+def test_mode_on_card(dev, label):
+    """A main path at a config other than the default (hard, memory,
+    easy_mode, coinrun's features off) at 256 envs on 64 levels
+    (chip_smoke.mode_path): the kernels launched T + 1 times, the placed
+    lanes ending and restarting, B1 (and jumper's B3) bitwise equal to
+    its plain version on the last step's inputs, the graph rollout equal
+    to the eager loop, and 64 envs on the card equal to the CPU."""
+    chip_smoke.mode_path(label, n_levels=64, n_envs=256, replays=1)
+
+
+def test_make_vec_on_card(dev):
+    """make_vec in one process on the card: bank, reset and rollout equal
+    make's bitwise; metrics equal float64 on the host (chip_smoke.
+    vec_phase at 512 envs on 64 levels)."""
+    chip_smoke.vec_phase(n_envs=512, n_levels=64)
+
+
+def test_wave_game_on_card(dev):
+    """make(wave_game) on the card equals the CPU over 45 steps
+    (chip_smoke.module_phase)."""
+    chip_smoke.module_phase(n_envs=16)
 
 
 def test_checkpoint_round_trip_on_card(dev, tmp_path):

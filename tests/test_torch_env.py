@@ -241,8 +241,9 @@ def test_port_imports_no_jax():
     (jumper's with its maze generator and atan2f; chaser's and maze's
     kind-field renders) and its window render, the exact-camera renders
     (scene_phases=0),
-    `compositor.stamps_from_pixel_bank`, `scene_kernel.scene`, a rollout,
-    the bench, the Gym adapter, a checkpoint and a guarded step loads
+    `compositor.stamps_from_pixel_bank`, `scene_kernel.scene`, `make_vec`
+    and a rollout on it, `make` of the example wave game module, the
+    bench, the Gym adapter, a checkpoint and a guarded step loads
     neither jax nor flax nor the JAX package, and no module in
     sys.modules comes from a file under procgen2_tpu/ (which a load by
     file path would bypass the import blocker with)."""
@@ -283,16 +284,24 @@ def test_port_imports_no_jax():
         rgbp, a = compositor.stamps_from_pixel_bank(bank_, var, r0, c0,
                                                     alives=scale)
         assert rgbp.shape == (2, 3, 64, 64) and a.shape == (2, 1, 64, 64)
-        # the learner-facing surface: rollout, bench, Gym, checkpoint, guards
+        # the learner-facing surface: make_vec, rollout, bench, Gym,
+        # checkpoint, guards, make(module)
         import tempfile
-        from types import SimpleNamespace
         from procgen2_tpu_torch import bench
-        from procgen2_tpu_torch.dist import rollout
+        from procgen2_tpu_torch.dist import make_vec, rollout
+        from procgen2_tpu_torch.examples import wave_game
         from procgen2_tpu_torch.tools import bench_cli
         from procgen2_tpu_torch.utils import checkpoint, guards
-        state, buf = rollout(SimpleNamespace(env=env, bank=bank), state,
-                             pt.random.key(2), 2)
+        venv = make_vec("maze", 2, num_levels=2, device="cpu")
+        vstate, _ = venv.reset(pt.random.key(2))
+        vstate, buf = rollout(venv, vstate, pt.random.key(2), 2)
         assert buf.obs.shape == (2, 2, 64, 64, 3)
+        _, vts = venv.step(vstate, torch.zeros(2, dtype=torch.int32))
+        assert int(venv.metrics(vts)["episodes_done"]) == 0
+        wenv = pt.make(wave_game, device="cpu")
+        wbank = wenv.generate_bank(pt.random.key(0), 2)
+        _, ts = wenv.reset(wbank, pt.random.key(1), 2)
+        assert ts.obs.shape == (2, 64, 64, 3)
         assert bench_cli.bench_game("maze", num_envs=2, num_levels=2, T=1,
                                     iters=1, device="cpu")["num_envs"] == 2
         gym_env = pt.GymEnv("maze", num_levels=2, seed=0, device="cpu")

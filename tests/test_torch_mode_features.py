@@ -1,0 +1,16 @@
+"""Coinrun with its level features off (`allow_pit`, `allow_crate`,
+`allow_dy` and `allow_mobs` False: flat runs of ground, no crates, no
+mobs), its main path against the JAX package's, bitwise
+(tests/mode_parity.py): bank, reset, 8 steps with a goal lane ending on
+the first, every state, reward, termination, info and frame, the JAX
+render on its TPU path (B1's kernel in interpret mode)."""
+import pytest
+
+from mode_parity import env_run
+from mode_parity import (test_bank_and_reset_match,  # noqa: F401
+                         test_placed_lanes_end_and_restart, test_step_matches)
+
+
+@pytest.fixture(scope="module", params=["coinrun features off"])
+def run(request):
+    return env_run(request.param)

@@ -1,0 +1,17 @@
+"""Caveflyer and jumper in the Procgen benchmark's `hard` mode (40 x 40
+worlds; caveflyer with 21 objects of each kind, jumper a maze with
+spikes), each main path against the JAX package's, bitwise
+(tests/mode_parity.py): bank, reset, 8 steps with a goal lane and a
+hazard lane ending on the first, every state, reward, termination, info
+and frame, the JAX render on its TPU path (B1's kernel, and jumper's
+needle through B3's, in interpret mode)."""
+import pytest
+
+from mode_parity import env_run
+from mode_parity import (test_bank_and_reset_match,  # noqa: F401
+                         test_placed_lanes_end_and_restart, test_step_matches)
+
+
+@pytest.fixture(scope="module", params=["caveflyer hard", "jumper hard"])
+def run(request):
+    return env_run(request.param)
