@@ -9,7 +9,9 @@ coinrun, climber, caveflyer and jumper, every game's window render
 graph of T steps, the rollout's graph table under fresh policies, the
 main paths at the other configs (hard, memory, easy_mode, coinrun's
 features off), `make_vec` and `make` of a game module, the bench, the
-Gym adapter, a checkpoint and the guards, and checks the results.
+Gym adapter, a checkpoint and the guards, and the reference's own
+levels played by the parity suites' bots at full width, and checks the
+results.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -175,7 +177,26 @@ Phases (any failure raises, so the exit code is non-zero and the final
      steps; a checkpoint saved on the card between two rollouts, restored
      and continued, equal to the live continuation; `guards.checked_step`
      over 3 clean coinrun steps, then raising on a NaN in the state;
- 28. the script's total wall time, then the kernels' JSON line (with
+ 28. the reference's own levels (tools/reference_levels, the mt19937
+     oracle's layouts) at full width, the runs of the parity suites
+     (REFERENCE_CASES): each game's test seeds as a bank tiled with
+     bank_gather to 4096 envs (maze easy: 8192), every replica keyed by
+     its seed (reset_pinned), driven through `dist.rollout` graphs: the
+     closed-loop bots (coinrun, climber, caveflyer, jumper) on the n
+     distinct lanes, read back after each T = 1 replay, each replica
+     given its seed's action; the open-loop plans (bossfight's NOOPs,
+     chaser's full-clear route, maze's BFS route) T = 8 steps a replay;
+     every replica's rewards and terminations up to its seed's end equal
+     the seed's CPU run (each case's CPU run in a process of its own,
+     started together), which the predictors' streams equal (coinrun,
+     jumper, bossfight, chaser, maze's route); the bots' actions and the
+     first 8 steps' frames of the n lanes equal the CPU's; B1 and B3
+     launch on the games that render with them (the wrappers at capture,
+     the profiler per replay), no kernel for chaser and maze; B1 and B3
+     bitwise equal to their plain versions on the last render's inputs,
+     timed beside their bounds; each game's wall seconds, env-steps/s
+     and the device's idle share;
+ 29. the script's total wall time, then the kernels' JSON line (with
      each kernel's least possible time on this card, `bound_ms`), then
      the `ok` line last.
 """
@@ -190,6 +211,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
@@ -2383,6 +2405,32 @@ def interleaved_replays(n_envs=64, num_steps=4):
         "bitwise")
 
 
+def render_kernels_vs_plain(name, env, gs):
+    """The kernels of game `name`'s render (B1; B3 for bossfight and
+    jumper's needle) against their plain versions on the render inputs
+    of game state `gs`, timed beside their bounds: {wrapper name: (err,
+    ms, plain ms, bound ms, bound_by)}."""
+    game = {"coinrun": coinrun, "climber": climber, "caveflyer": caveflyer,
+            "jumper": jumper, "bossfight": bossfight}.get(name)
+    out = {}
+    if name == "bossfight":
+        img, groups = bossfight._stamp_groups(env.cfg, gs)
+        out["composite"] = (*stamps_vs_plain(img, groups, 20),
+                            *stamp_bound(img, groups))
+    elif game is not None:
+        inputs = game._scene_inputs(env.cfg, gs)
+        out["scene_raw"] = (*scene_vs_plain(inputs, 20), *scene_bound(inputs))
+        if name == "jumper":
+            ST = jumper._scene_tensors(env.cfg.scene_phases,
+                                       env.cfg.world_dim, str(env.device))
+            blended = jumper._compass(scene_kernel.scene_raw(*inputs), ST)
+            needle = [compositor.stamp_group(ST["banks"]["needle"],
+                                             *jumper._needle_stamp(gs))]
+            out["composite"] = (*stamps_vs_plain(blended, needle, 20),
+                                *stamp_bound(blended, needle))
+    return out
+
+
 # ---- the main paths at other configs (hard, memory, easy_mode, ...) ----
 
 def mode_path(label, n_levels=NUM_LEVELS, n_envs=NUM_ENVS, replays=3):
@@ -2435,9 +2483,9 @@ def mode_path(label, n_levels=NUM_LEVELS, n_envs=NUM_ENVS, replays=3):
                                  "restart on step 0")
 
     inputs = game._scene_inputs(env.cfg, st.game)
-    err1, ms1, plain1 = scene_vs_plain(inputs, 20)
-    b1, by1 = scene_bound(inputs)
     slots = [grp[1].shape[1] for grp in inputs[12]]
+    kern = render_kernels_vs_plain(name, env, st.game)
+    err1, ms1, plain1, b1, by1 = kern["scene_raw"]
     out = dict(label=label, lanes=lanes, launches=counted, peak_gib=peak,
                b1=dict(ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
                        slots=slots, err=err1))
@@ -2448,14 +2496,8 @@ def mode_path(label, n_levels=NUM_LEVELS, n_envs=NUM_ENVS, replays=3):
         f"{tuple(inputs[0].shape)}, groups K = {slots}): bitwise equal, "
         f"kernel {ms1:.4f} ms, plain {plain1:.4f} ms, bound {b1:.4f} ms "
         f"({by1})")
-    if name == "jumper":
-        ST = jumper._scene_tensors(env.cfg.scene_phases, env.cfg.world_dim,
-                                   str(dev))
-        blended = jumper._compass(scene_kernel.scene_raw(*inputs), ST)
-        needle = [compositor.stamp_group(ST["banks"]["needle"],
-                                         *jumper._needle_stamp(st.game))]
-        err3, ms3, plain3 = stamps_vs_plain(blended, needle, 20)
-        b3, by3 = stamp_bound(blended, needle)
+    if "composite" in kern:  # jumper's needle
+        err3, ms3, plain3, b3, by3 = kern["composite"]
         out["b3"] = dict(ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=by3,
                          err=err3)
         log(f"{label}: B3 vs plain on the needle: bitwise equal, kernel "
@@ -2571,6 +2613,320 @@ def module_phase(n_envs=256, steps=45):
     log(f"module: make(wave_game) on the card == on the CPU over {steps} "
         f"steps at {n_envs} envs (obs, reward, termination, final state; "
         f"{ends} episode ends at the horizon)")
+
+
+# ---- the reference's own levels at full width (tools/reference_levels) ----
+
+# The parity suites' runs (tests/test_torch_parity_scripted.py), on the
+# card: game -> (config, its test's seeds, how it acts ("bot": the game's
+# closed-loop bot, one step per replay; else the name of an open-loop
+# plan, replayed T steps at a time), step cap, envs, the kernels one
+# step launches by __global__ name).
+REFERENCE_CASES = {
+    "coinrun": ({}, [0, 1, 2, 5, 7, 9, 11, 12, 17, 19, 22, 26, 27, 31, 33],
+                "bot", 400, NUM_ENVS, {"scene_raw_kernel": 1}),
+    "bossfight": ({}, [1, 2, 3, 4, 5, 6, 7, 8, 9, 12], "noop", 250,
+                  NUM_ENVS, {"stamp_composite_kernel": 1}),
+    "climber": ({"easy_mode": True},
+                [0, 5, 7, 9, 11, 12, 13, 17, 18, 19, 22, 23, 24, 25, 28],
+                "bot", 1200, NUM_ENVS, {"scene_raw_kernel": 1}),
+    "caveflyer": ({"mode": "hard"},
+                  [7, 9, 20, 27, 35, 36, 39, 51, 53, 68, 69, 77], "bot", 900,
+                  NUM_ENVS, {"scene_raw_kernel": 1}),
+    "jumper": ({"mode": "easy"},
+               [0, 6, 8, 9, 11, 12, 14, 15, 19, 20, 21, 22, 25, 26, 37],
+               "bot", 500, NUM_ENVS,
+               {"scene_raw_kernel": 1, "stamp_composite_kernel": 1}),
+    "chaser": ({"mode": "easy"}, [119, 137, 261], "route", 700, NUM_ENVS,
+               {}),
+    "maze": ({"mode": "easy"}, list(range(20)), "route", 500, MAZE_ENVS, {}),
+}
+REFERENCE_OBS_STEPS = 8  # steps whose frames are held against the CPU
+
+
+def reference_levels(name, device):
+    """(the bank of REFERENCE_CASES[name]'s seeds on `device`, its levels
+    with numpy leaves)."""
+    from procgen2_tpu_torch.tools.reference_levels import (host_level,
+                                                           reference_bank)
+    cfg, seeds = REFERENCE_CASES[name][:2]
+    bank = reference_bank(name, seeds, device,
+                          **({} if name == "bossfight" else cfg))
+    return bank, [host_level(bank, i) for i in range(len(seeds))]
+
+
+def reference_plan(name, levels):
+    """Each seed's open-loop action list: NOOPs (bossfight), the
+    full-clear route (chaser) or the BFS route (maze)."""
+    from procgen2_tpu_torch.tools import reference_play as rp
+    if REFERENCE_CASES[name][2] == "noop":
+        return [[4] * REFERENCE_CASES[name][3]] * len(levels)
+    return [{"chaser": rp.chaser_plan, "maze": rp.maze_plan}[name](lvl)
+            for lvl in levels]
+
+
+def reference_predict(name, levels, keys0, actions, ends):
+    """Each seed's (rewards, terminated) by the independent predictors
+    (tools/predict.py, tools/bots.py) for its actions up to its end, or
+    None where the game has none (climber, caveflyer); maze's is its
+    route: 0 until +10 on the route's last step."""
+    from procgen2_tpu_torch.tools import bots, predict
+    acts = [actions[: e + 1, i] for i, e in enumerate(ends)]
+    if name == "coinrun":
+        return [predict.coinrun_predict(lvl, a) for lvl, a in zip(levels,
+                                                                   acts)]
+    if name == "jumper":
+        return [predict.jumper_predict(lvl, a) for lvl, a in zip(levels, acts)]
+    if name == "bossfight":
+        return predict.bossfight_predict_many(levels, keys0, acts, "hard")
+    if name == "chaser":
+        return [bots.chaser_predict(lvl, a) for lvl, a in zip(levels, acts)]
+    if name == "maze":
+        out = []
+        for route in reference_plan(name, levels):
+            r = np.zeros(len(route), np.float32)
+            r[-1] = 10.0
+            out.append((r, np.arange(len(route)) == len(route) - 1))
+        return out
+    return None
+
+
+def reference_cpu(name):
+    """The CPU run of REFERENCE_CASES[name] through the port, one lane per
+    seed (`reference_play.play`, step_raw), in a process of its own:
+    rewards, dones and actions [steps, n] to the step every seed has
+    ended, the first REFERENCE_OBS_STEPS steps' frames, each seed's end
+    step and the predicted streams (checked against the run here)."""
+    from procgen2_tpu_torch.tools import reference_play as rp
+    cfg, seeds, plan, max_steps = REFERENCE_CASES[name][:4]
+    env = pt.make(name, device="cpu", **cfg)
+    bank, levels = reference_levels(name, "cpu")
+    t0 = time.perf_counter()
+    out = rp.play(env, bank, seeds,
+                  None if plan == "bot" else rp.pad(reference_plan(name,
+                                                                   levels)),
+                  game=name, levels=levels, max_steps=max_steps,
+                  render_steps=REFERENCE_OBS_STEPS, until_done=True)
+    R, D, A = out["rewards"], out["dones"], out["actions"]
+    if not D.any(0).all():
+        raise AssertionError(f"reference {name}: seeds "
+                             f"{[s for s, d in zip(seeds, D.any(0)) if not d]}"
+                             " never ended on the CPU")
+    ends = [int(e) for e in D.argmax(0)]
+    preds = reference_predict(name, levels, out["keys0"], A, ends)
+    for i, (seed, e) in enumerate(zip(seeds, ends)):
+        if preds is not None and not (
+                np.array_equal(preds[i][0].view(np.int32),
+                               R[: e + 1, i].view(np.int32))
+                and np.array_equal(preds[i][1], D[: e + 1, i])):
+            raise AssertionError(f"reference {name} seed {seed}: the CPU run "
+                                 "differs from the predictor's stream")
+    return dict(rewards=R, dones=D, actions=A, ends=ends,
+                obs=torch.stack(out["obs"]).numpy(),
+                predicted=preds is not None,
+                seconds=time.perf_counter() - t0)
+
+
+class PlanRows:
+    """A rollout policy reading its actions through `policy_state`, an
+    int32 [T, N] chunk: call t of a T-step trace takes row t mod T."""
+
+    def __init__(self, num_steps):
+        self.num_steps, self.calls = num_steps, 0
+
+    def __call__(self, chunk, k_act):
+        row = chunk[self.calls % self.num_steps]
+        self.calls += 1
+        return row
+
+
+def given_actions(actions, k_act):
+    """A rollout policy whose `policy_state` is the step's actions [N]."""
+    return actions
+
+
+def reference_card(name):
+    """REFERENCE_CASES[name] on the card at full width through
+    `dist.rollout`: the seeds' bank tiled with bank_gather to the case's
+    envs (env i on seed i mod n, every replica keyed alike by
+    reset_pinned), the bots acting on the n distinct lanes (read back
+    after each T = 1 replay, each replica given its seed's action) or
+    the plan replayed T steps at a time; stops once the n lanes have
+    ended. The wrappers' counts are set to 0 just before and read just
+    after. Returns the run and its numbers."""
+    from types import SimpleNamespace
+
+    from procgen2_tpu_torch.dist import rollout
+    from procgen2_tpu_torch.tools import reference_play as rp
+    cfg, seeds, plan, max_steps, n_envs, _ = REFERENCE_CASES[name]
+    env = pt.make(name, **cfg)
+    dev = env.device
+    n = len(seeds)
+    base, levels = reference_levels(name, dev)
+    seed_of = torch.arange(n_envs, device=dev) % n
+    bank = bank_gather(base, seed_of)
+    vec = SimpleNamespace(env=env, bank=bank)
+    key = pt.random.key(5, dev)
+    state = env.reset_pinned(bank, pt.random.key(rp.PIN_KEY, dev),
+                             torch.tensor(seeds, device=dev)[seed_of])
+    if plan == "bot":
+        bots_, fields = rp.make_bots(name, levels), rp.BOTS[name][1]
+        steps_per, policy = 1, given_actions
+    else:
+        chunks = rp.pad(reference_plan(name, levels))
+        steps_per, policy = T, PlanRows(T)
+    R, D, A, obs = [], [], [], []
+    done = np.zeros(n, bool)
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replays = 0
+    while len(R) < max_steps and not done.all():
+        if plan == "bot":
+            a = rp.bot_actions(bots_, rp.read(state.game, fields, n), done)
+            A.append(a)
+            ps = torch.from_numpy(a).to(dev)[seed_of]
+        else:
+            c = chunks[len(R): len(R) + T]
+            c = np.concatenate([c, np.full((T - len(c), n), 4, np.int32)])
+            A.extend(c)
+            ps = torch.from_numpy(c).to(dev)[:, seed_of]
+        state, buf = rollout(vec, state, key, steps_per, policy, ps)
+        replays += 1
+        if replays == 1:  # the capture (warm-up included)
+            torch.cuda.synchronize()
+            capture = time.perf_counter() - t0
+        R.extend(buf.rewards)
+        D.extend(buf.dones)
+        if len(obs) < REFERENCE_OBS_STEPS:
+            obs.extend(buf.obs[:, :n].clone())
+        done |= buf.dones[:, :n].any(0).cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    counts, dev_ms = replay_profile(lambda: rollout(vec, state, key,
+                                                    steps_per, policy, ps))
+    return dict(env=env, state=state, seed_of=seed_of, rewards=torch.stack(R),
+                dones=torch.stack(D), actions=np.stack(A),
+                obs=torch.stack(obs[:REFERENCE_OBS_STEPS]).cpu().numpy(),
+                wall=wall, capture=capture, steps=len(R), replays=replays,
+                counted=counted,
+                counts=counts, device_ms=dev_ms, steps_per=steps_per,
+                n_envs=n_envs)
+
+
+def reference_check(name, card, cpu):
+    """Every replica's rewards and terminations up to its seed's end equal
+    the seed's CPU run (which the predictor's stream equals), the bots'
+    actions equal the CPU's, and the n distinct lanes' frames of the
+    first steps before their ends equal the CPU's, bitwise."""
+    ends = cpu["ends"]
+    last = max(ends) + 1
+    if card["steps"] < last:
+        raise AssertionError(f"reference {name}: the card stopped at step "
+                             f"{card['steps']}, the CPU's seeds end by {last}")
+    dev = card["rewards"].device
+    seed_of = card["seed_of"]
+    live = (torch.arange(last, device=dev)[:, None]
+            <= torch.tensor(ends, device=dev)[seed_of][None])
+    for what, got, want in (
+            ("rewards", card["rewards"][:last], cpu["rewards"][:last]),
+            ("terminations", card["dones"][:last], cpu["dones"][:last])):
+        want = torch.from_numpy(want).to(dev)[:, seed_of]
+        if want.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        bad = live & (got != want)
+        if bool(bad.any()):
+            t, lane = (int(x) for x in bad.nonzero()[0])
+            raise AssertionError(f"reference {name}: {int(bad.sum())} "
+                                 f"{what} differ from the seed's CPU run, "
+                                 f"first at step {t}, env {lane}")
+    for i, e in enumerate(ends):
+        if not np.array_equal(card["actions"][: e + 1, i],
+                              cpu["actions"][: e + 1, i]):
+            raise AssertionError(f"reference {name}: seed "
+                                 f"{REFERENCE_CASES[name][1][i]}'s actions "
+                                 "differ from the CPU's")
+        k = min(e, len(card["obs"]), len(cpu["obs"]))
+        if not np.array_equal(card["obs"][:k, i], cpu["obs"][:k, i]):
+            raise AssertionError(f"reference {name}: seed "
+                                 f"{REFERENCE_CASES[name][1][i]}'s frames "
+                                 "differ from the CPU's")
+    return int(live.sum())
+
+
+def reference_phase():
+    """The reference's own levels at full width: each case's CPU run in a
+    process of its own (started together), the card's run of the same
+    seeds through rollout graphs, checked against it; the kernels'
+    launches (wrappers at capture, the profiler per replay; none for
+    chaser and maze), B1 and B3 against their plain versions on the last
+    render's inputs. Returns {game: numbers}."""
+    import multiprocessing
+
+    results = {}
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            len(REFERENCE_CASES), mp_context=ctx,
+            initializer=torch.set_num_threads, initargs=(1,)) as pool:
+        cpu_runs = {name: pool.submit(reference_cpu, name)
+                    for name in REFERENCE_CASES}
+        for name, (_, seeds, _, _, n_envs, kernels) in \
+                REFERENCE_CASES.items():
+            card = reference_card(name)
+            want = {KERNEL_OF[k].__name__ for k in kernels}
+            for w, c in card["counted"].items():
+                if (c > 0) != (w in want):
+                    raise AssertionError(f"reference {name}: the run "
+                                         f"launched {card['counted']}, "
+                                         f"expected {sorted(want)}")
+            if card["counts"] is not None:
+                per = {k: kernels.get(k, 0) * card["steps_per"]
+                       for k in ROLLOUT_KERNELS}
+                got = {k: card["counts"].get(k, 0) for k in ROLLOUT_KERNELS}
+                if got != per:
+                    raise AssertionError(f"reference {name}: one replay "
+                                         f"launched {got}, expected {per}")
+            cpu = cpu_runs[name].result()
+            held = reference_check(name, card, cpu)
+            kern = render_kernels_vs_plain(name, card["env"],
+                                          card["state"].game)
+            # the replays after the capture: env-steps/s and idle share
+            after = card["wall"] - card["capture"]
+            sps = ((card["steps"] - card["steps_per"]) * n_envs / after
+                   if card["replays"] > 1 else None)
+            idle = (None if card["device_ms"] is None or sps is None else
+                    1.0 - card["device_ms"] * (card["replays"] - 1)
+                    / (after * 1e3))
+            results[name] = dict(
+                seeds=len(seeds), envs=n_envs, steps=card["steps"],
+                replays=card["replays"], wall_s=card["wall"],
+                capture_s=card["capture"], steps_per_s=sps, idle=idle, launches=card["counted"],
+                per_replay=card["counts"], cpu_s=cpu["seconds"],
+                kernels=kern, predicted=cpu["predicted"])
+            log(f"reference {name}: {len(seeds)} seeds x {n_envs} envs, "
+                f"{card['steps']} steps in {card['replays']} rollout "
+                f"replays of T = {card['steps_per']}: {card['wall']:.3f} s "
+                f"(the capture {card['capture']:.3f} s), after the capture "
+                f"{sps} env-steps/s; device "
+                f"{card['device_ms']} ms per replay, idle share "
+                f"{'not measured' if idle is None else f'{100 * idle:.1f}%'}; "
+                f"launches at capture {card['counted']}, per replay "
+                f"{card['counts']}; {held} (step, env) rewards and "
+                f"terminations up to each seed's end == the CPU run "
+                f"({cpu['seconds']:.1f} s on the CPU)"
+                + (", == the predictor" if cpu["predicted"] else "")
+                + f"; actions and first frames == the CPU; ends "
+                f"{cpu['ends']}")
+            for k, (err, ms, plain, b, by) in kern.items():
+                log(f"reference {name}: {k} vs plain on the last render's "
+                    f"inputs at {n_envs} envs: bitwise equal, kernel "
+                    f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
+                    f"({by})")
+            del card
+            gc.collect()
+    return results
 
 
 def main():
@@ -2699,8 +3055,18 @@ def main():
     bench_phase()
     # ---- 27. the Gym adapter, a checkpoint, the guards ----
     surface_phase()
+    # ---- 28. the reference's own levels at full width ----
+    ref = reference_phase()
+    for name, r in ref.items():
+        log(f"reference summary {name}: {r['seeds']} seeds x {r['envs']} "
+            f"envs, {r['steps']} steps, {r['wall_s']:.3f} s (capture "
+            f"{r['capture_s']:.3f} s), {r['steps_per_s']} env-steps/s after "
+            f"the capture, idle {r['idle']}, "
+            f"CPU run {r['cpu_s']:.1f} s; "
+            + "; ".join(f"{k} {v[1]:.4f} ms (bound {v[3]:.4f}, plain "
+                        f"{v[2]:.4f})" for k, v in r["kernels"].items()))
 
-    # ---- 28. result ----
+    # ---- 29. result ----
     # the main paths that run B1: coinrun, climber, caveflyer and jumper,
     # and the other configs; B3: bossfight and jumper, the four
     # exact-camera paths and jumper's other modes
@@ -2714,6 +3080,16 @@ def main():
     stamp["max_abs_err"] = max(stamp["max_abs_err"], serr_r, err_j3,
                                *(ex["err"] for ex in exact.values()),
                                *(m["b3"]["err"] for m in modes if "b3" in m))
+    # and the reference's levels (B1: coinrun, climber, caveflyer, jumper;
+    # B3: bossfight, jumper)
+    scene["launches"] += sum(r["launches"]["scene_raw"] for r in ref.values())
+    stamp["launches"] += sum(r["launches"]["composite"] for r in ref.values())
+    scene["max_abs_err"] = max(scene["max_abs_err"], *(
+        r["kernels"]["scene_raw"][0] for r in ref.values()
+        if "scene_raw" in r["kernels"]))
+    stamp["max_abs_err"] = max(stamp["max_abs_err"], *(
+        r["kernels"]["composite"][0] for r in ref.values()
+        if "composite" in r["kernels"]))
     sums["max_abs_err"] = max(sums["max_abs_err"], err4_r)
     field["max_abs_err"] = max(field["max_abs_err"], err5_r)
     log(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s")

@@ -15,7 +15,9 @@ surface: `dist.rollout` as one CUDA graph against eager steps, a graph
 per bank, the graph table's bound and shared pool under fresh policies
 and interleaved replays, and a checkpoint round trip on the card; the
 main paths at the other configs (chip_smoke.MODE_CASES), make_vec in one
-process and make(wave_game) on the card.
+process and make(wave_game) on the card; and the reference's own levels
+(two seeds of each kernel game at 256 envs) through rollout graphs
+against the CPU.
 
 They skip without a card. This file imports no jax, so it runs on a
 machine without it; there, skip the repo's conftest (which sets jax up):
@@ -1037,3 +1039,23 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
     live, _ = vec.env.step(vec.bank, state, a + 5)
     back, _ = vec.env.step(res["bank"], res["state"], a + 5)
     _same(live, back)
+
+
+@pytest.mark.parametrize("name", ["coinrun", "bossfight", "climber",
+                                  "caveflyer", "jumper"])
+def test_reference_levels_on_card_match_cpu(dev, name, monkeypatch):
+    """Two seeds of the game's reference bank (the parity suite's first
+    two) tiled to 256 envs through `dist.rollout` graphs, played by its
+    bot or plan (chip_smoke.reference_card): every replica's rewards and
+    terminations up to its seed's end, the actions and the first frames
+    equal the CPU run (chip_smoke.reference_cpu, which the predictor's
+    stream equals), and B1 / B3 launch on the games that render with
+    them."""
+    cfg, seeds, plan, max_steps, _, kernels = chip_smoke.REFERENCE_CASES[name]
+    monkeypatch.setitem(chip_smoke.REFERENCE_CASES, name,
+                        (cfg, seeds[:2], plan, max_steps, 256, kernels))
+    card = chip_smoke.reference_card(name)
+    cpu = chip_smoke.reference_cpu(name)
+    assert chip_smoke.reference_check(name, card, cpu) >= 256
+    assert {w for w, c in card["counted"].items() if c} == {
+        chip_smoke.KERNEL_OF[k].__name__ for k in kernels}

@@ -243,7 +243,9 @@ def test_port_imports_no_jax():
     (scene_phases=0),
     `compositor.stamps_from_pixel_bank`, `scene_kernel.scene`, `make_vec`
     and a rollout on it, `make` of the example wave game module, the
-    bench, the Gym adapter, a checkpoint and a guarded step loads
+    bench, the Gym adapter, a checkpoint, a guarded step, a bank of the
+    reference's own levels (the mt19937 oracle), a bot and the
+    predictors loads
     neither jax nor flax nor the JAX package, and no module in
     sys.modules comes from a file under procgen2_tpu/ (which a load by
     file path would bypass the import blocker with)."""
@@ -313,6 +315,34 @@ def test_port_imports_no_jax():
         guards.checked_step(env)(bank, state,
                                  torch.zeros(2, dtype=torch.int32))
         assert callable(bench.main)
+        # the reference-level tools (the oracle needs g++): a bank of the
+        # reference's own levels, a closed-loop bot and the predictors
+        import shutil
+        if shutil.which("g++"):
+            from procgen2_tpu_torch.tools import bots, predict, reference_levels
+            from procgen2_tpu_torch.tools import rng_oracle, scripted
+            assert rng_oracle.Mt19937(5489).raw() == 3499211612
+            cenv = pt.make("coinrun", device="cpu")
+            rbank = reference_levels.reference_bank("coinrun", [0, 1], "cpu")
+            rstate = cenv.reset_pinned(rbank, pt.random.key(123),
+                                       torch.tensor([0, 1]))
+            lvl = reference_levels.host_level(rbank, 0)
+            bot = bots.CoinrunBot(lvl)
+            gs = rstate.game
+            act = bot.act(gs.pos[0].numpy(), gs.vel[0].numpy(),
+                          gs.on_ground[0].numpy())
+            rstate, ts = cenv.step_raw(rstate, torch.tensor([act, 4]))
+            assert ts.obs.shape == (2, 64, 64, 3)
+            assert len(predict.coinrun_predict(lvl, [act])[0]) == 1
+            boss = reference_levels.reference_bank("bossfight", [1], "cpu")
+            bstate = pt.make("bossfight", device="cpu").reset_pinned(
+                boss, pt.random.key(123), torch.tensor([1]))
+            assert len(predict.bossfight_predict(
+                reference_levels.host_level(boss, 0), bstate.game.rng[0],
+                [4, 4])[0]) == 2
+            maze_lvl = reference_levels.host_level(
+                reference_levels.reference_bank("maze", [0], "cpu"), 0)
+            assert scripted.bfs_actions(maze_lvl.grid, (0, 0), (0, 0)) == []
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
         jax_pkg = (pathlib.Path.cwd() / "procgen2_tpu").resolve()
         loaded = [name for name, m in list(sys.modules.items())
