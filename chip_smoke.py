@@ -9,9 +9,10 @@ coinrun, climber, caveflyer and jumper, every game's window render
 graph of T steps, the rollout's graph table under fresh policies, the
 main paths at the other configs (hard, memory, easy_mode, coinrun's
 features off), `make_vec` and `make` of a game module, the bench, the
-Gym adapter, a checkpoint and the guards, and the reference's own
-levels played by the parity suites' bots at full width, and checks the
-results.
+Gym adapter, a checkpoint and the guards, the reference's own levels
+played by the parity suites' bots at full width, and every game under a
+PNG overlay with fixtures recorded on the card and replayed on the CPU,
+and checks the results.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -196,7 +197,27 @@ Phases (any failure raises, so the exit code is non-zero and the final
      bitwise equal to their plain versions on the last render's inputs,
      timed beside their bounds; each game's wall seconds, env-steps/s
      and the device's idle share;
- 29. the script's total wall time, then the kernels' JSON line (with
+ 29. the PNG overlay (render/png_assets) at full width: a synthetic
+     reference assets/ tree (`synthetic_assets`: every mapped sprite and
+     background as seeded random RGBA with fractional alpha, clear texels
+     and non-square backgrounds) installed through `png_assets.install`;
+     every game's main path (OVERLAY_GAMES, 1024 levels / 4096 envs, maze
+     easy 2048 / 8192) run from one bank with procedural art and then under
+     the overlay: reset and 2 steps, B1 and B3 counted (3 launches each
+     where the game renders with them, none elsewhere), the same states,
+     every frame other than the procedural one, the first 8 envs re-run on
+     the CPU under the overlay and equal, B1 and B3 bitwise against their
+     plain versions on the last render's inputs, timed beside their
+     bounds; after `uninstall` a new env renders the final states'
+     procedural frames again, bitwise. Then fixtures recorded on the card
+     (`tools.difference.record_engine_fixture`: maze seed 7's route across
+     the episode boundary, coinrun seed 0's bot run through B1) and
+     replayed on the CPU (`run_fixture_diff`): agreement 1.0, no pixel
+     difference. Then `gen.kruskal.boruvka_maze` at maze easy's dims
+     (2048 levels, per-level dims) and jumper's (1024 levels), bitwise
+     equal to `kruskal_maze` on the card and to the CPU, both timed
+     (levels/s);
+ 30. the script's total wall time, then the kernels' JSON line (with
      each kernel's least possible time on this card, `bound_ms`), then
      the `ok` line last.
 """
@@ -2929,6 +2950,310 @@ def reference_phase():
     return results
 
 
+# ---- 29. the PNG overlay, fixtures across devices, boruvka_maze ----
+
+OVERLAY_GAMES = ("coinrun", "bossfight", "climber", "caveflyer", "jumper",
+                 "chaser", "maze")
+# the kernels each game's main path launches (KERNEL_WRAPPERS' names)
+OVERLAY_KERNELS = {"coinrun": ("scene_raw",), "climber": ("scene_raw",),
+                   "caveflyer": ("scene_raw",), "jumper": ("scene_raw",
+                                                           "composite"),
+                   "bossfight": ("composite",), "chaser": (), "maze": ()}
+OVERLAY_STEPS = 2
+# Pillow decodes PNGs on the card's machine as it does here, so the phase
+# installs its synthetic tree through png_assets.install, as a user does.
+PNG_ROUTE = "png_assets.install (Pillow decodes the synthetic tree)"
+
+
+def random_rgba(rng, h, w):
+    """Random RGBA u8 [h, w, 4] from numpy Generator `rng`: fractional
+    alpha, a quarter of the texels fully clear and a quarter opaque."""
+    img = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+    r = rng.random((h, w))
+    img[..., 3][r < 0.25] = 0
+    img[..., 3][r > 0.75] = 255
+    return img
+
+
+def synthetic_assets(root, seed=13):
+    """Write a synthetic reference assets/ tree under `root`: every path
+    of png_assets.default_mapping() and BACKGROUND_PATHS as seeded
+    `random_rgba`; sprites 12-70 px on a side, backgrounds wider or
+    taller than square (they are square-cropped on install)."""
+    from PIL import Image
+
+    from procgen2_tpu_torch.render import png_assets
+
+    rng = np.random.default_rng(seed)
+
+    def save(rel, img):
+        p = pathlib.Path(root) / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(img, "RGBA").save(p)
+
+    for rel in sorted(set(png_assets.default_mapping().values())):
+        save(rel, random_rgba(rng, *rng.integers(12, 71, 2)))
+    for rels in png_assets.BACKGROUND_PATHS.values():
+        for rel in rels:
+            h = int(rng.integers(40, 120))
+            w = int(h * rng.choice([0.6, 1.5, 2.0]))
+            save(rel, random_rgba(rng, h, w))
+
+
+def overlay_case(name):
+    """(game, cfg, levels, envs) of `name`'s main path."""
+    if name == "maze":
+        return "maze", {"mode": "easy"}, MAZE_LEVELS, MAZE_ENVS
+    return name, {}, NUM_LEVELS, NUM_ENVS
+
+
+def overlay_run(env, bank, actions, n_envs):
+    """reset(n_envs) from key(1), then OVERLAY_STEPS steps: (final state,
+    [the reset's obs, each step's obs])."""
+    state, ts = env.reset(bank, pt.random.key(1, env.device), n_envs)
+    obs = [ts.obs]
+    for t in range(OVERLAY_STEPS):
+        state, ts = env.step(bank, state, actions[t, :n_envs])
+        obs.append(ts.obs)
+    return state, obs
+
+
+def overlay_games():
+    """Every game's main path at full width with procedural art, then with
+    the synthetic overlay installed (B1/B3 counted, the same states, other
+    frames, the first CPU_ENVS envs re-run on the CPU, B1/B3 against plain
+    on the last render's inputs), then after `uninstall` (a new env's
+    render of the final state equals the procedural one). Returns {game:
+    numbers}."""
+    import tempfile
+
+    from procgen2_tpu_torch.render import png_assets
+
+    runs = {}
+    for name in OVERLAY_GAMES:
+        game, cfg, n_levels, n_envs = overlay_case(name)
+        env = pt.make(game, **cfg)
+        bank = env.generate_bank(pt.random.key(0, env.device), n_levels)
+        g = torch.Generator(device=env.device)
+        g.manual_seed(3)
+        actions = torch.randint(0, 15, (OVERLAY_STEPS, n_envs), generator=g,
+                                device=env.device, dtype=torch.int32)
+        state, obs = overlay_run(env, bank, actions, n_envs)
+        runs[name] = dict(bank=bank, actions=actions, plain_obs=obs,
+                          plain_state=state, plain_final=env.observe(state))
+    with tempfile.TemporaryDirectory() as root:
+        synthetic_assets(root)
+        t0 = time.perf_counter()
+        installed = png_assets.install(root, strict=True)
+        log(f"overlay: route {PNG_ROUTE}: {len(installed)} entries installed "
+            f"in {time.perf_counter() - t0:.3f} s")
+        try:
+            for name, r in runs.items():
+                r.update(overlay_game(name, r))
+                gc.collect()
+        finally:
+            png_assets.uninstall()
+    for name, r in runs.items():
+        game, cfg, _, _ = overlay_case(name)
+        again = pt.make(game, **cfg).observe(r["state"])
+        if not torch.equal(again, r["plain_final"]):
+            raise AssertionError(f"overlay {name}: after uninstall a new env "
+                                 f"does not render the procedural frames")
+        for k in ("plain_obs", "plain_state", "plain_final", "bank"):
+            del r[k]
+    log("overlay: after uninstall, a new env of every game renders the "
+        "procedural frames of the final states again, bitwise")
+    return runs
+
+
+def overlay_game(name, r):
+    """One game's main path under the installed overlay (see
+    overlay_games)."""
+    game, cfg, _, n_envs = overlay_case(name)
+    env = pt.make(game, **cfg)
+    bank, actions = r["bank"], r["actions"]
+    torch.cuda.synchronize()
+    for c in KERNEL_WRAPPERS:
+        c.launches = 0
+    t0 = time.perf_counter()
+    state, obs = overlay_run(env, bank, actions, n_envs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in KERNEL_WRAPPERS}
+    want = {k: OVERLAY_STEPS + 1 for k in OVERLAY_KERNELS[name]}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"overlay {name}: launches {launches}, "
+                             f"expected {want}")
+    same_tree(state, r["plain_state"], f"overlay {name}: the state under "
+              f"the overlay vs procedural art")
+    for t, (o, p) in enumerate(zip(obs, r["plain_obs"])):
+        if not bool((o != p).reshape(n_envs, -1).any(1).all()):
+            raise AssertionError(f"overlay {name} render {t}: a frame equals "
+                                 f"its procedural-art frame")
+    cenv = pt.make(game, device="cpu", **cfg)
+    cstate, cobs = overlay_run(cenv, tree_map(lambda x: x.cpu(), bank),
+                               actions.cpu(), CPU_ENVS)
+    for t, (o, c) in enumerate(zip(obs, cobs)):
+        if not torch.equal(o[:CPU_ENVS].cpu(), c):
+            raise AssertionError(f"overlay {name} render {t}: CPU and card "
+                                 f"frames differ")
+    same_tree(tree_map(lambda x: x[:CPU_ENVS], state), cstate,
+              f"overlay {name}: state, card vs CPU")
+    kern = render_kernels_vs_plain(name, env, state.game)
+    log(f"overlay {name}: bank, reset and {OVERLAY_STEPS} steps x {n_envs} "
+        f"envs under the overlay in {wall:.3f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; states == the "
+        f"procedural run's, every frame differs from its procedural frame; "
+        f"the first {CPU_ENVS} envs == the CPU at every render"
+        + "".join(f"; {k} vs plain on the last render's inputs: bitwise "
+                  f"equal, kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{b:.4f} ms ({by})"
+                  for k, (err, ms, plain, b, by) in kern.items()))
+    return dict(state=state, launches=launches, kernels=kern, wall_s=wall)
+
+
+def coinrun_bot_actions(seed, max_steps=300):
+    """The coinrun bot's closed-loop run to the coin on the reference's
+    level `seed`, started as a fixture replay starts it, on the CPU; then
+    3 NOOPs into the next episode."""
+    from procgen2_tpu_torch.tools.bots import NOOP, CoinrunBot
+    from procgen2_tpu_torch.tools.reference_levels import (host_level,
+                                                           reference_bank)
+
+    env = pt.make("coinrun", device="cpu")
+    bank = reference_bank("coinrun", [seed], "cpu")
+    state, _ = env.reset(bank, pt.random.fold_in(pt.random.key(seed), 0), 1)
+    bot = CoinrunBot(host_level(bank, 0))
+    actions = []
+    for _ in range(max_steps):
+        gs = state.game
+        a = int(bot.act(gs.pos[0].numpy(), gs.vel[0].numpy(),
+                        gs.on_ground[0].numpy()))
+        actions.append(a)
+        state, ts = env.step_raw(state, torch.tensor([a], dtype=torch.int32),
+                                 render=False)
+        if bool(ts.terminated[0]):
+            return actions + [NOOP] * 3
+    raise AssertionError(f"coinrun seed {seed}: the bot did not finish")
+
+
+def maze_route_actions(seed):
+    """The BFS route to the goal of the reference's maze level `seed`
+    (easy), then 4 NOOPs into the next episode."""
+    from procgen2_tpu_torch.tools.bots import NOOP
+    from procgen2_tpu_torch.tools.reference_levels import (host_level,
+                                                           reference_bank)
+    from procgen2_tpu_torch.tools.rng_oracle import reference_maze_layout
+    from procgen2_tpu_torch.tools.scripted import bfs_actions
+
+    grid = host_level(reference_bank("maze", [seed], "cpu", mode="easy"),
+                      0).grid
+    lay = reference_maze_layout(seed, "easy")
+    m = lay["margin"]
+    gi, gj = lay["goal"]
+    return bfs_actions(grid, (14 - m, m), (14 - (gj + m), gi + m)) + [NOOP] * 4
+
+
+def fixtures_across_devices():
+    """Fixtures recorded on the card (maze seed 7 across the episode
+    boundary; coinrun seed 0, the bot to the coin and on, through B1) and
+    replayed on the CPU: agreement 1.0 and no pixel difference. Returns
+    the B1 launches of the coinrun recording."""
+    import tempfile
+
+    from procgen2_tpu_torch.tools import difference
+
+    cases = (("maze", 7, maze_route_actions(7), {"mode": "easy"}),
+             ("coinrun", 0, coinrun_bot_actions(0), {}))
+    b1 = 0
+    with tempfile.TemporaryDirectory() as root:
+        for game, seed, actions, cfg in cases:
+            path = f"{root}/{game}.npz"
+            torch.cuda.synchronize()
+            scene_kernel.scene_raw.launches = 0
+            t0 = time.perf_counter()
+            difference.record_engine_fixture(game, path, actions, seed=seed,
+                                             device="cuda", **cfg)
+            rec_s = time.perf_counter() - t0
+            launches = scene_kernel.scene_raw.launches
+            if (launches > 0) != (game == "coinrun"):
+                raise AssertionError(f"fixture {game}: B1 launched "
+                                     f"{launches} times")
+            b1 += launches
+            rep = difference.run_fixture_diff(path, episodes="all",
+                                              device="cpu", **cfg)
+            with np.load(path) as fx:
+                ends = int(fx["terminated"].sum())
+            if not (rep["steps_compared"] == len(actions) and ends >= 1
+                    and rep["reward_agreement"] == 1.0
+                    and rep["termination_agreement"] == 1.0
+                    and rep["pixel"].max_abs_diff == 0.0):
+                raise AssertionError(f"fixture {game}: the CPU replay of the "
+                                     f"card's recording differs: {rep}")
+            log(f"fixture {game} seed {seed}: {len(actions)} steps recorded "
+                f"on the card in {rec_s:.3f} s ({ends} episode end(s), B1 "
+                f"launches {launches}), replayed on the CPU: reward and "
+                f"termination agreement 1.0, max |pixel| diff 0")
+    return b1
+
+
+def boruvka_check(smi, dev="cuda"):
+    """boruvka_maze against kruskal_maze on the card (bitwise) and against
+    the CPU, at maze easy's dims (2048 levels, per-level odd dims, max 15)
+    and jumper's (1024 levels, 6); levels/s of both on the card."""
+    from procgen2_tpu_torch.gen import kruskal
+
+    out = {}
+    for label, n, dim, max_dim in (("maze easy", MAZE_LEVELS, "per-level",
+                                    maze.Config(mode="easy").world_dim),
+                                   ("jumper", NUM_LEVELS, *(
+                                       [jumper.Config().world_dim
+                                        // jumper.MAZE_SCALE] * 2))):
+        keys = pt.random.split(pt.random.key(5, dev), n)
+        if dim == "per-level":
+            g = torch.Generator(device=dev)
+            g.manual_seed(5)
+            dim = torch.randint(0, (max_dim - 1) // 2, (n,), generator=g,
+                                device=dev) * 2 + 3
+        walls, rates = {}, {}
+        for fn in (kruskal.kruskal_maze, kruskal.boruvka_maze):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                w = fn(keys, dim, max_dim)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            walls[fn.__name__] = w
+            rates[fn.__name__] = n / min(times[1:])
+        if not torch.equal(walls["kruskal_maze"], walls["boruvka_maze"]):
+            raise AssertionError(f"boruvka_maze {label}: != kruskal_maze")
+        cpu = kruskal.boruvka_maze(keys.cpu(), dim if isinstance(dim, int)
+                                   else dim.cpu(), max_dim)
+        if not torch.equal(cpu, walls["boruvka_maze"].cpu()):
+            raise AssertionError(f"boruvka_maze {label}: card != CPU")
+        log(f"boruvka_maze {label} ({n} levels, max_dim {max_dim}): == "
+            f"kruskal_maze on the card and == the CPU, bitwise; "
+            f"kruskal_maze {rates['kruskal_maze']:.1f} levels/s, "
+            f"boruvka_maze {rates['boruvka_maze']:.1f} levels/s "
+            f"({rates['boruvka_maze'] / rates['kruskal_maze']:.2f}x) on "
+            f"{smi}")
+        out[label] = rates
+    return out
+
+
+def overlay_phase(smi, dev):
+    """Phase 29: the overlay on every game, fixtures across devices and
+    boruvka_maze. Returns its numbers."""
+    t0 = time.perf_counter()
+    games = overlay_games()
+    fixture_b1 = fixtures_across_devices()
+    mazes = boruvka_check(smi, dev)
+    wall = time.perf_counter() - t0
+    log(f"overlay phase: {wall:.1f} s")
+    return dict(games=games, fixture_b1=fixture_b1, mazes=mazes, wall_s=wall)
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device ----
@@ -3066,7 +3391,10 @@ def main():
             + "; ".join(f"{k} {v[1]:.4f} ms (bound {v[3]:.4f}, plain "
                         f"{v[2]:.4f})" for k, v in r["kernels"].items()))
 
-    # ---- 29. result ----
+    # ---- 29. the PNG overlay, fixtures across devices, boruvka_maze ----
+    over = overlay_phase(smi, dev)
+
+    # ---- 30. result ----
     # the main paths that run B1: coinrun, climber, caveflyer and jumper,
     # and the other configs; B3: bossfight and jumper, the four
     # exact-camera paths and jumper's other modes
@@ -3090,6 +3418,16 @@ def main():
     stamp["max_abs_err"] = max(stamp["max_abs_err"], *(
         r["kernels"]["composite"][0] for r in ref.values()
         if "composite" in r["kernels"]))
+    # and the overlay's art (B1: coinrun, climber, caveflyer, jumper, the
+    # coinrun fixture's recording; B3: bossfight, jumper)
+    for r in over["games"].values():
+        scene["launches"] += r["launches"]["scene_raw"]
+        stamp["launches"] += r["launches"]["composite"]
+        for k, entry in (("scene_raw", scene), ("composite", stamp)):
+            if k in r["kernels"]:
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           r["kernels"][k][0])
+    scene["launches"] += over["fixture_b1"]
     sums["max_abs_err"] = max(sums["max_abs_err"], err4_r)
     field["max_abs_err"] = max(field["max_abs_err"], err5_r)
     log(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s")

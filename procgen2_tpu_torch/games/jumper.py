@@ -41,6 +41,7 @@ from ..physics.tiles import FULL, NONE, resolve_tile_collisions
 from ..render import atlas as atlas_lib
 from ..render import compositor as C
 from ..render import phases as phases_lib
+from ..render import png_assets
 from ..render import scene_kernel
 from ..trig import atan2f
 from ..utils.consts import const
@@ -208,12 +209,18 @@ def _compass_overlay(obs: int):
     numpy (rgbp f32 [1, 3, obs, obs], a f32 [1, 1, obs, obs]). The circle
     sits at a fixed screen position (jumper.cpp:487-495: compass_size 200
     x game_zoom 0.3 = 60 px on any target), so it is the same for every
-    env: sampled nearest at pixel centres from the atlas's compass_circle
-    sprite. The JAX package prefers the reference's overlay PNG where one
-    is installed (`png_assets.source_path`); none is, so it takes this
-    atlas fallback, the only path ported (ROADMAP A)."""
+    env: sampled nearest at pixel centres. Where an overlay installed
+    the compass PNG (`png_assets.source_path("compass_circle")`), the
+    source is that PNG decoded at display resolution, max(64, obs) px,
+    times 255 in f32, not rounded to uint8 (the 60 px circle upsampled
+    from the 32 px atlas entry smears its rim); otherwise, as with the
+    procedural art, the atlas's compass_circle sprite (uint8)."""
     x0, y0 = obs - _CS + _OFFX, _OFFY
-    src = atlas_lib.sprite_rgba("compass_circle").astype(np.float32)
+    sp = png_assets.source_path("compass_circle")
+    if sp is not None:
+        src = png_assets.load_png(sp, size=max(64, obs)) * 255.0
+    else:
+        src = atlas_lib.sprite_rgba("compass_circle").astype(np.float32)
     S = src.shape[0]
     c = np.arange(obs) + 0.5
     u_f = (c - x0) / _CS

@@ -7,9 +7,9 @@ union-find. The JAX package visits a static wall list of the largest maze
 in `jax.random.permutation` order and masks walls outside a (traced) maze
 size. Here every level of a batch takes one step of that visit at a time:
 the union-find lives in int tensors [L, max_dim**2], and the loops run
-over walls and cells, not over levels. `boruvka_maze`, the JAX package's
-parallel variant that carves the same maze, is not ported: no game calls
-it.
+over walls and cells, not over levels. `boruvka_maze` carves the same
+maze in a fixed number of parallel rounds (no game calls it, in either
+package).
 
 Grid convention: maze coordinates (i, j) in [0, max_dim)**2, rooms at
 even-even cells, walls between them; `wall` is bool [L, max_dim, max_dim]
@@ -113,14 +113,84 @@ def kruskal_maze(keys, dim, max_dim: int):
         parent[lv, m] = torch.where(can, root, parent[lv, m])
         rank[lv, root] += (can & ~a_bigger & (rank_a == rank_b)).long()
 
-    # every cell of a carved wall opens, and the corner room
-    # (maze_generator.cpp:71)
-    opened = torch.zeros((L, D * D), dtype=torch.int64, device=dev)
-    for c in (c1, c2, c0):
+    return _walls(carved, (c1, c2, c0), D)
+
+
+def _walls(carved, cells, D):
+    """The wall grid bool [L, D, D] after the carve: every cell of a
+    carved wall (carved bool [L, n_walls]; cells: the flat cells of each
+    wall's two rooms and centre, int64 [n_walls] each) opens, and so does
+    the corner room (maze_generator.cpp:71)."""
+    L = carved.shape[0]
+    opened = torch.zeros((L, D * D), dtype=torch.int64, device=carved.device)
+    for c in cells:
         opened.index_add_(1, c, carved.long())
     wall = opened == 0
     wall[:, 0] = False
     return wall.reshape(L, D, D)
+
+
+def boruvka_maze(keys, dim, max_dim: int):
+    """Carve the same maze as `kruskal_maze`, key for key, in
+    ceil(log2 R) + 1 parallel rounds over the R rooms (the JAX package's
+    `boruvka_maze`). Random-order Kruskal accepts exactly the minimum
+    spanning tree of the room graph under weight = a wall's position in
+    the visit permutation: the weights are distinct, so the tree is
+    unique, and Boruvka's algorithm on them carves it too.
+
+    Per round every component takes its least crossing wall (a min over
+    the walls of both endpoint labels), the walls that are some
+    component's minimum are carved, and each component hooks to the one
+    across its chosen wall (a 2-cycle broken toward the smaller id), then
+    the labels contract by pointer jumping. The round count is fixed, as
+    in the JAX package's `fori_loop`, so nothing is read back to the host
+    and the carve can run inside a CUDA graph.
+
+    keys int64 [L, 2]; `dim` an int or an int tensor [L] (odd, 3 <= dim
+    <= max_dim). Returns wall bool [L, max_dim, max_dim]."""
+    dev = keys.device
+    L = keys.shape[0]
+    D = max_dim
+    RD = (D + 1) // 2
+    R = RD * RD  # rooms at even-even cells
+    e1, e2, ce = (torch.from_numpy(a).long().to(dev)
+                  for a in _wall_list(max_dim))
+    E = e1.shape[0]
+    u = (e1[:, 1] // 2 + RD * (e1[:, 0] // 2)).expand(L, E)
+    v = (e2[:, 1] // 2 + RD * (e2[:, 0] // 2)).expand(L, E)
+    far = torch.maximum(e1, torch.maximum(e2, ce))
+    d = _dims(dim, L, dev)
+    valid = (far[None, :, 0] < d) & (far[None, :, 1] < d)  # [L, E]
+
+    order = prng.permutation(keys, E)  # [L, E]
+    # weight of wall w = its rank in the visit order (inverse permutation)
+    weight = torch.empty_like(order).scatter_(
+        1, order, torch.arange(E, device=dev).expand(L, E))
+    big = torch.full((L, R), E, dtype=torch.int64, device=dev)
+    rooms = torch.arange(R, device=dev).expand(L, R)
+    labels = rooms.clone()
+    carved = torch.zeros((L, E), dtype=torch.bool, device=dev)
+    jumps = int(np.ceil(np.log2(max(R, 2))))
+    for _ in range(jumps + 1):
+        lu, lv = labels.gather(1, u), labels.gather(1, v)
+        active = valid & (lu != lv)
+        keyw = torch.where(active, weight, E)
+        # the least crossing weight of each component (E where none)
+        emin = big.scatter_reduce(1, torch.cat([lu, lv], 1),
+                                  torch.cat([keyw, keyw], 1), "amin")
+        carved |= active & ((keyw == emin.gather(1, lu))
+                            | (keyw == emin.gather(1, lv)))
+        # hook each component to the one across its chosen wall, break
+        # 2-cycles toward the smaller id, then pointer-jump to the root
+        eidx = order.gather(1, emin.clamp(0, E - 1))  # weight rank -> wall
+        p = torch.where(emin < E, labels.gather(1, u.gather(1, eidx))
+                        + labels.gather(1, v.gather(1, eidx)) - rooms, rooms)
+        p = torch.where((p.gather(1, p) == rooms) & (rooms < p), rooms, p)
+        for _ in range(jumps):
+            p = p.gather(1, p)
+        labels = p.gather(1, labels)
+
+    return _walls(carved, [p[:, 1] + D * p[:, 0] for p in (e1, e2, ce)], D)
 
 
 def open_dead_ends(keys, wall, dim):

@@ -78,6 +78,27 @@ def resolve_tile_collisions(grid, coll_lut, x, y, w, h, oob_id,
                          fallthrough, step_y, edges)
 
 
+def resolve_from_rows(rows, coll_lut, x, y, w, h, W, oob_id,
+                      fallthrough=False, step_y=0.0, edges=None):
+    """resolve_tile_collisions for probes whose 3 window rows were
+    fetched beforehand: rows int [..., 3, W], the grid's rows ly .. ly + 2
+    of each probe (ly = floor(y)) with rows outside the grid already
+    `oob_id` (`fetch_window_rows`); x, y f32 [...]. The 3x3 window is the
+    rows' columns floor(x) .. floor(x) + 2, `oob_id` outside [0, W).
+    `edges`: as in `resolve_tile_collisions`."""
+    lx = torch.floor(x).to(torch.int32)
+    ly = torch.floor(y).to(torch.int32)
+    xs = lx[..., None] + torch.arange(_WINDOW, dtype=lx.dtype,
+                                      device=lx.device)  # [..., 3(dx)]
+    idx = xs.clamp(0, W - 1).long()[..., None, :].expand(
+        *rows.shape[:-1], _WINDOW)
+    vals = rows.gather(-1, idx)  # [..., 3(dy), 3(dx)]
+    inx = ((xs >= 0) & (xs < W))[..., None, :]
+    vals = torch.where(inx, vals, torch.full_like(vals, oob_id))
+    return _resolve_core(_apply_lut(vals, coll_lut), lx, ly, x, y, w, h,
+                         fallthrough, step_y, edges)
+
+
 def fetch_window_rows(grid, ly, oob_id):
     """The 3 window rows starting at `ly` for K probes: grid [N, H, W],
     ly int [N, K] -> int8 [N, K, 3, W], rows outside the grid = oob_id."""

@@ -8,8 +8,10 @@ the arrays are identical (tests/test_torch_assets.py). Every sprite is
 generated deterministically in numpy from a seed that depends only on
 its name, and packed into one `uint8[N, S, S, 4]` array; games name
 sprites and get atlas indices back. The reference ships PNG art instead
-(`Asset_Manager`, `games/maze/asset_manager.h:7-37`); the overlay of real
-PNGs that the JAX package offers is not ported.
+(`Asset_Manager`, `games/maze/asset_manager.h:7-37`); `render/png_assets.py`
+overlays such PNGs from a user's copy of the reference's `assets/` tree
+onto this registry (`_REGISTRY`) and the backgrounds (`_BG_OVERLAY`), as
+the JAX package's overlay does.
 """
 from __future__ import annotations
 
@@ -791,6 +793,10 @@ def build_atlas(names: Tuple[str, ...]) -> Tuple[np.ndarray, Dict[str, int]]:
 BG_SIZE = 64  # matches the obs resolution: backgrounds are sampled at
 #               most once per obs pixel
 
+# kind -> uint8 [m, BG_SIZE, BG_SIZE, 3]; filled by render.png_assets
+# when a user overlays the reference's real background PNGs.
+_BG_OVERLAY: Dict[str, np.ndarray] = {}
+
 
 @functools.lru_cache(maxsize=None)
 def build_backgrounds(kind: str, n: int) -> np.ndarray:
@@ -798,7 +804,13 @@ def build_backgrounds(kind: str, n: int) -> np.ndarray:
     stand-ins for the per-game background PNG lists (the ~50 coinrun
     backgrounds in games/coinrun/coinrun.cpp:60-110, bossfight's 13 space
     backgrounds in games/bossfight/bossfight.cpp:54-67, the 9 topdown
-    backgrounds of maze and chaser in games/maze/maze.cpp:62-72)."""
+    backgrounds of maze and chaser in games/maze/maze.cpp:62-72). An
+    overlay installed by `render.png_assets.install` replaces them with
+    the real PNGs, tiled modulo the files supplied."""
+    ov = _BG_OVERLAY.get(kind)
+    if ov is not None:
+        reps = -(-n // ov.shape[0])
+        return np.tile(ov, (reps, 1, 1, 1))[:n]
     out = np.zeros((n, BG_SIZE, BG_SIZE, 3), np.uint8)
     c = (np.arange(BG_SIZE) + 0.5) / BG_SIZE
     x, y = np.meshgrid(c, c, indexing="xy")

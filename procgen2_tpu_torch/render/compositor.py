@@ -26,7 +26,14 @@ The exact renders (each game's `observe` at any size, the batched
 layers and sprites, each a blend over the whole frame. Their sprites are
 sampled by the same index gathers, and a rotated sprite by a 2-D gather.
 Every function takes a batch (leading N) and the target size as an
-argument (`size`, 64 for the obs); nothing is module state."""
+argument (`size`, 64 for the obs); nothing is module state. So the JAX
+package's `resolution(n)` context manager, which sets a module global
+that its renders read while tracing, is this `size` argument, and its
+`tile_onehots` (the per-env tile and texel one-hot selectors of a moving
+camera) is `tile_selectors` (index selectors). Its other helpers have
+counterparts of the same name here: `planar`, `planar_stack`,
+`select_tex`, `select_texs`, `sprite_stamps` and `place_stamps` (the
+placement that `_stamps_matmul` uses)."""
 from __future__ import annotations
 
 import contextlib
@@ -215,21 +222,35 @@ def _stamps_matmul(prem_bank, var_idx, r0, c0, alives=None, alpha=None):
     N, K = var_idx.shape
     dev = var_idx.device
     bank = prem_bank.to(_BF16)
-    P = bank.shape[-1]
+    V = bank.shape[0]
     w = torch.ones((N, K), dtype=_BF16, device=dev)
     if alives is not None:
         w = w * alives.to(_BF16)
     if alpha is not None:
         w = w * as_tensor(alpha, dev).to(_BF16)
-    acc = torch.zeros((N, 4, OBS + 2 * P, OBS + 2 * P), dtype=torch.float32,
-                      device=dev)
+    v = var_idx.long()
+    live = (w != 0) & (v >= 0) & (v < V)
+    prem = (bank[v.clamp(0, V - 1)].to(torch.float32)
+            * w.to(torch.float32)[..., None, None, None]).to(_BF16)
+    return place_stamps(torch.where(live[..., None, None, None], prem, 0.0),
+                        r0, c0)
+
+
+def place_stamps(prem, r0, c0, size=OBS):
+    """Place per-sprite premultiplied patches into the frame, the JAX
+    package's `place_stamps` (its placement one-hot matmul pair): prem
+    bf16 [N, K, 4, P, P] (rgb premultiplied and alpha), r0/c0 int [N, K]
+    the top-left pixel of each patch. The patches are added in f32 over
+    their windows (pixels off the size x size frame dropped), and the sum
+    is rounded once to bf16: (rgbp bf16 [N, 3, size, size], a bf16
+    [N, 1, size, size])."""
+    N, K, _, P, _ = prem.shape
+    acc = torch.zeros((N, 4, size + 2 * P, size + 2 * P),
+                      dtype=torch.float32, device=prem.device)
     for k in range(K):
-        idx, contrib, live = stamp_kernel._window(
-            bank, var_idx[:, k], w[:, k], r0[:, k], c0[:, k], OBS, P,
-            channels=4)
-        acc[idx] += torch.where(live[:, None, None, None], contrib.float(),
-                                0.0)
-    acc = acc[:, :, P:P + OBS, P:P + OBS].to(_BF16)
+        idx = stamp_kernel._window_index(r0[:, k], c0[:, k], size, P, P, 4)
+        acc[idx] += prem[:, k].to(torch.float32)
+    acc = acc[:, :, P:P + size, P:P + size].to(_BF16)
     return acc[:, :3], acc[:, 3:4]
 
 
@@ -279,6 +300,87 @@ def bank(planar, device):
     from."""
     return torch.from_numpy(np.ascontiguousarray(
         np.asarray(planar).transpose(1, 0, 2, 3))).to(device)
+
+
+def planar(img_hwc):
+    """An HWC image (numpy or tensor) as a planar CHW tensor."""
+    return torch.as_tensor(np.asarray(img_hwc)).movedim(-1, 0)
+
+
+def planar_stack(imgs_nhwc):
+    """An image stack [N, H, W, C] (numpy or tensor) as [C, N, H, W], the
+    planar layout of the JAX package's atlas arrays."""
+    return planar(imgs_nhwc)
+
+
+def select_texs(atlas_p, sids):
+    """The sprites sids int [...] of a planar atlas [4, A, S, S] as bf16
+    [..., 4, S, S]: the JAX package's one-hot contraction over the atlas
+    axis (`select_texs`, and `select_tex` for one id), a gather here; an
+    id outside [0, A) selects zeros."""
+    A = atlas_p.shape[1]
+    sids = torch.as_tensor(sids).long()
+    tex = atlas_p.to(_BF16).movedim(1, 0)[sids.clamp(0, A - 1)]
+    ok = (sids >= 0) & (sids < A)
+    return tex * ok[..., None, None, None].to(_BF16)
+
+
+def select_tex(atlas_p, sid):
+    """One sprite [4, S, S] (bf16) of a planar atlas by id (`select_texs`)."""
+    return select_texs(atlas_p, sid)
+
+
+def sprite_stamps(bank_p, var_idx, xs, ys, ws, hs, wx_b, wy_b, flips=None,
+                  alives=None, patch=8):
+    """K sprites per env drawn as P x P stamps, the JAX package's
+    `sprite_stamps`: each sprite's texels sampled nearest at the pixel
+    centres of its P x P patch, premultiplied in bf16, then placed by
+    `place_stamps` (summed, not blended in painter order).
+
+    bank_p: [V, 4, S, S] texture bank (u8/bf16); var_idx int [N, K] (a
+    variant outside [0, V) draws nothing); xs, ys f32 [N, K] the world
+    top-left and ws, hs f32 [N, K] the world size of each sprite; wx_b,
+    wy_b f32 [N, size] the per-env separable pixel->world maps (affine:
+    the patch starts at the first pixel row/column that covers the
+    sprite, ceil((pos - w[0]) / (w[1] - w[0]))); flips, alives bool
+    [N, K]; patch = P. Returns premultiplied (rgbp bf16 [N, 3, size,
+    size], a bf16 [N, 1, size, size])."""
+    bank_p = torch.as_tensor(bank_p)
+    V = bank_p.shape[0]
+    N, K = var_idx.shape
+    size = wx_b.shape[-1]
+    dev = var_idx.device
+
+    def origin(w_map, pos):
+        step = w_map[:, 1] - w_map[:, 0]  # [N]
+        return torch.ceil((pos - w_map[:, :1]) / step[:, None]).to(
+            torch.int32)  # [N, K]
+
+    def texels(w_map, pos, extent, r0):
+        """Texel index and in-sprite mask of each patch row (or column):
+        int64 / bool [N, K, P]."""
+        idx = (r0.long()[..., None] + torch.arange(patch, device=dev)).clamp(
+            0, size - 1)
+        wp = w_map[:, None, :].expand(N, K, size).gather(2, idx)
+        return texel_index((wp - pos[..., None]) / extent[..., None], S)
+
+    r0, c0 = origin(wy_b, ys), origin(wx_b, xs)
+    vi, in_v = texels(wy_b, ys, hs, r0)
+    ui, in_u = texels(wx_b, xs, ws, c0)
+    if flips is not None:
+        ui = torch.where(flips[..., None], S - 1 - ui, ui)
+    v = var_idx.long()
+    row_ok = in_v & ((v >= 0) & (v < V))[..., None]
+    if alives is not None:
+        row_ok = row_ok & alives[..., None]
+    tex = bank_p.to(_BF16)[v.clamp(0, V - 1)]  # [N, K, 4, S, S]
+    rows = tex.gather(3, vi[:, :, None, :, None].expand(N, K, 4, patch, S))
+    p4 = rows.gather(4, ui[:, :, None, None, :].expand(N, K, 4, patch, patch))
+    p4 = p4 * (row_ok[:, :, None, :, None] & in_u[:, :, None, None, :]).to(
+        _BF16)  # [N, K, 4, P(p), P(q)]
+    a_p = p4[:, :, 3:4] * torch.tensor(1 / 255.0, dtype=_BF16, device=dev)
+    prem = torch.cat([p4[:, :, :3] * a_p, a_p], dim=2)
+    return place_stamps(prem, r0, c0, size)
 
 
 def pixel_coords(n, size=OBS, device=None):

@@ -54,24 +54,31 @@ def blend_groups_reference(frame, groups):
     return fp[:, :, pad:pad + obs, pad:pad + obs]
 
 
+def _window_index(r0, c0, obs, pad, P, channels):
+    """Index of the P x P windows at (r0, c0) int [N] in frames
+    [N, >= channels, obs + 2 * pad, obs + 2 * pad] padded by `pad` >= P:
+    each window starts at (r0, c0) clipped to [-P, obs], so its pixels
+    outside [0, obs) fall in the padding."""
+    N = r0.shape[0]
+    dev = r0.device
+    ii = torch.arange(P, device=dev)
+    rows = r0.long().clamp(-P, obs)[:, None] + pad + ii  # [N, P]
+    cols = c0.long().clamp(-P, obs)[:, None] + pad + ii
+    return (torch.arange(N, device=dev)[:, None, None, None],
+            torch.arange(channels, device=dev)[None, :, None, None],
+            rows[:, None, :, None], cols[:, None, None, :])
+
+
 def _window(bank, v, s, r0, c0, obs, pad, channels=3):
     """Slot k's stamp for every env, over its P x P window of a frame padded
     by `pad` >= P: (index of the window [N, channels, P, P], contrib bf16
     [N, 4, P, P] = bf16(texel * scale), live bool [N]: the slots not
-    skipped). The window starts at (r0, c0) clipped to [-P, obs]; its
-    pixels outside [0, obs) fall in the padding."""
-    N = v.shape[0]
+    skipped); the window as `_window_index` places it."""
     V, _, P, _ = bank.shape
-    dev = v.device
     s = s.to(torch.float32)
     v = v.long()
     live = (s != 0) & (v >= 0) & (v < V)
-    ii = torch.arange(P, device=dev)
-    rows = r0.long().clamp(-P, obs)[:, None] + pad + ii  # [N, P]
-    cols = c0.long().clamp(-P, obs)[:, None] + pad + ii
-    idx = (torch.arange(N, device=dev)[:, None, None, None],
-           torch.arange(channels, device=dev)[None, :, None, None],
-           rows[:, None, :, None], cols[:, None, None, :])
+    idx = _window_index(r0, c0, obs, pad, P, channels)
     patch = bank[v.clamp(0, V - 1)]  # [N, 4, P, P]
     contrib = (patch.to(torch.float32) * s[:, None, None, None]).to(_BF16)
     return idx, contrib, live

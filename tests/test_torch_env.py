@@ -245,7 +245,10 @@ def test_port_imports_no_jax():
     and a rollout on it, `make` of the example wave game module, the
     bench, the Gym adapter, a checkpoint, a guarded step, a bank of the
     reference's own levels (the mt19937 oracle), a bot and the
-    predictors loads
+    predictors, the PNG overlay, the difference and fixture tools (a
+    fixture recorded and replayed), the CEnv loader, BossfightRefSim, the
+    viewer's module, boruvka_maze, resolve_from_rows and the compositor's
+    remaining helpers loads
     neither jax nor flax nor the JAX package, and no module in
     sys.modules comes from a file under procgen2_tpu/ (which a load by
     file path would bypass the import blocker with)."""
@@ -315,6 +318,28 @@ def test_port_imports_no_jax():
         guards.checked_step(env)(bank, state,
                                  torch.zeros(2, dtype=torch.int32))
         assert callable(bench.main)
+        # the overlay, the difference and fixture tools, the loader, the
+        # viewer, boruvka_maze, resolve_from_rows, the compositor helpers
+        from procgen2_tpu_torch.gen.kruskal import boruvka_maze
+        from procgen2_tpu_torch.physics.tiles import resolve_from_rows
+        from procgen2_tpu_torch.render import png_assets
+        from procgen2_tpu_torch.tools import cenv_loader, difference, viewer
+        assert boruvka_maze(pt.random.split(pt.random.key(0), 2), 5, 7).shape == (2, 7, 7)
+        rows = torch.zeros((2, 3, 8), dtype=torch.int8)
+        f2 = torch.full((2,), 1.5)
+        assert resolve_from_rows(rows, (0, 1), f2, f2, 1.0, 1.0, 8, 1)[2].shape == (2,)
+        assert compositor.select_tex(compositor.planar_stack(torch.zeros(
+            (3, 32, 32, 4), dtype=torch.uint8)), 1).shape == (4, 32, 32)
+        rgbp, a = compositor.place_stamps(
+            torch.zeros((2, 1, 4, 8, 8), dtype=torch.bfloat16),
+            torch.zeros((2, 1), dtype=torch.int32), torch.zeros((2, 1), dtype=torch.int32))
+        assert rgbp.shape == (2, 3, 64, 64)
+        with tempfile.TemporaryDirectory() as d:
+            assert png_assets.install(d) == [] and png_assets.installed() == []
+            png_assets.uninstall()
+        frames = torch.zeros((1, 64, 64, 3), dtype=torch.uint8).numpy()
+        assert difference.compare_frames(frames, frames).mean_abs_diff == 0.0
+        assert callable(viewer.compute_action) and cenv_loader.T_BOX == 4
         # the reference-level tools (the oracle needs g++): a bank of the
         # reference's own levels, a closed-loop bot and the predictors
         import shutil
@@ -343,6 +368,16 @@ def test_port_imports_no_jax():
             maze_lvl = reference_levels.host_level(
                 reference_levels.reference_bank("maze", [0], "cpu"), 0)
             assert scripted.bfs_actions(maze_lvl.grid, (0, 0), (0, 0)) == []
+            from procgen2_tpu_torch.tools import bossfight_ref
+            sim = bossfight_ref.BossfightRefSim(0)
+            assert sim.step(4)[1] in (False, True)
+            sim.close()
+            with tempfile.TemporaryDirectory() as d:
+                difference.record_engine_fixture("maze", d + "/fx.npz", [4, 4],
+                                                 seed=1, device="cpu", mode="easy")
+                rep = difference.run_fixture_diff(d + "/fx.npz", device="cpu",
+                                                  mode="easy")
+                assert rep["reward_agreement"] == 1.0
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
         jax_pkg = (pathlib.Path.cwd() / "procgen2_tpu").resolve()
         loaded = [name for name, m in list(sys.modules.items())

@@ -9,7 +9,10 @@ walls. Every comparison is exact.
 * kruskal_maze at jumper's maze sizes (6, 13, 15) and at chaser's and
   maze's largest sizes, with an int `dim` and with a per-level `dim` (the
   JAX side vmapped over it, as maze.py passes a traced one);
-* open_dead_ends at the three jumper maze sizes, and with a per-level dim.
+* open_dead_ends at the three jumper maze sizes, and with a per-level dim;
+* boruvka_maze against the jitted JAX `boruvka_maze` and the port's
+  kruskal_maze, at jumper's and maze's sizes, with an int and a per-level
+  dim.
 """
 import jax
 import jax.numpy as jnp
@@ -133,3 +136,26 @@ def test_open_dead_ends_per_level_dim_matches_jax():
                             torch.from_numpy(dims)).numpy()
     np.testing.assert_array_equal(want, got)
     assert (want != wall).any()
+
+
+# jumper's maze sizes (easy, hard, memory) and maze's largest world_dim
+@pytest.mark.parametrize("max_dim", [6, 13, 15, 25])
+def test_boruvka_maze_matches_jax_and_kruskal(max_dim):
+    """The same walls as the jitted JAX boruvka_maze and as the port's
+    kruskal_maze, key for key: an int dim (max_dim, as jumper passes its
+    maze size), and a per-level dim (odd, 3 .. max_dim), the JAX side
+    vmapped over it."""
+    jks, tks = _keys(32, 200 + max_dim)
+    jb = jax.jit(jax.vmap(lambda k, d: jk.boruvka_maze(k, d, max_dim)))
+    want = np.asarray(jb(jks, jnp.full((32,), max_dim, jnp.int32)))
+    got = tk.boruvka_maze(tks, max_dim, max_dim)
+    assert got.dtype == torch.bool and got.shape == (32, max_dim, max_dim)
+    np.testing.assert_array_equal(want, got.numpy())
+    np.testing.assert_array_equal(
+        tk.kruskal_maze(tks, max_dim, max_dim).numpy(), got.numpy())
+    dims = _dims(max_dim, 32, max_dim)
+    want = np.asarray(jb(jks, jnp.asarray(dims)))
+    got = tk.boruvka_maze(tks, torch.from_numpy(dims), max_dim).numpy()
+    np.testing.assert_array_equal(want, got)
+    np.testing.assert_array_equal(
+        tk.kruskal_maze(tks, torch.from_numpy(dims), max_dim).numpy(), got)

@@ -130,3 +130,56 @@ def test_aabb_helpers():
     to = tt.aabb_overlap(*t[:4], t[4], t[5])
     for a, b in zip(jo, to):
         same(a, b)
+
+
+@pytest.mark.parametrize("lut", [LUT_AGENT, LUT_LAVA])
+@pytest.mark.parametrize("centred", [False, True])
+def test_resolve_from_rows_matches_jitted_jax(lut, centred):
+    """Probes resolved from rows fetched beforehand (rows above and below
+    the grid folded to OOB, columns off both sides), with fallthrough and
+    step_y, against the jitted JAX function. `centred`: the rect given by
+    its centre less its half size inside the jit, as the games give it,
+    where XLA folds the constants into the rect's edges (the port's
+    `edges=`); else x and y come in as they are."""
+    rng = np.random.default_rng(40 + centred + 2 * lut[3])
+    g = _grid(rng)
+    K = 9
+    w, h = 1.0, 0.5
+    cx = _coord(rng, (N, K), -2.0, W + 1.0)
+    cy = _coord(rng, (N, K), -2.0, H + 1.0)
+    fall = rng.random((N, K)) < 0.3
+    step_y = _coord(rng, (N, K), -0.4, 0.4)
+    if centred:
+        tx = torch.from_numpy(cx) - 0.5 * w
+        ty = torch.from_numpy(cy) - 0.5 * h
+        edges = (torch.from_numpy(cx) + 0.5 * w,
+                 torch.from_numpy(cy) + 0.5 * h,
+                 torch.from_numpy(cx), torch.from_numpy(cy))
+    else:
+        tx, ty, edges = torch.from_numpy(cx), torch.from_numpy(cy), None
+    ly = torch.floor(ty).to(torch.int32)
+    trows = tt.fetch_window_rows(torch.from_numpy(g), ly, OOB)
+    jrows = jax.vmap(lambda gg, a: jt.fetch_window_rows(gg, a, OOB))(
+        g, ly.numpy())
+    same(jrows, trows)
+
+    def one(rows, a, b, f, s):
+        if centred:
+            a, b = a - 0.5 * w, b - 0.5 * h
+        return jt.resolve_from_rows(rows, np.array(lut, np.int32), a, b, w,
+                                    h, W, OOB, fallthrough=f, step_y=s)
+
+    want = jax.jit(jax.vmap(one))(jrows, cx, cy, fall, step_y)
+    got = tt.resolve_from_rows(trows, lut, tx, ty, w, h, W, OOB,
+                               fallthrough=torch.from_numpy(fall),
+                               step_y=torch.from_numpy(step_y), edges=edges)
+    for a, b in zip(want, got):
+        same(a, b)
+    assert got[2].any() and not got[2].all()
+    # the rows of the grid itself: the resolver that reads the grid
+    grid = tt.resolve_tile_collisions(
+        torch.from_numpy(g), lut, tx, ty, w, h, OOB,
+        fallthrough=torch.from_numpy(fall), step_y=torch.from_numpy(step_y),
+        edges=edges)
+    for a, b in zip(grid, got):
+        assert torch.equal(a, b)

@@ -451,3 +451,96 @@ def test_rotated_sprites_match_jax_on_texel_edges(case):
         bad += [(rep, e) for e in np.nonzero(
             (want != got.numpy()).any(axis=(1, 2, 3)))[0]]
     assert not bad, f"{len(bad)} of {8 * EDGE_REPS} envs differ: {bad[:8]}"
+
+
+# ---- the compositor's remaining helpers (planar, planar_stack,
+# select_tex(s), place_stamps, sprite_stamps) against the JAX functions ----
+
+def test_planar_and_planar_stack_match_jax():
+    rng = np.random.default_rng(20)
+    img = rng.integers(0, 256, (5, 7, 4)).astype(np.uint8)
+    stack = rng.integers(0, 256, (3, 5, 7, 4)).astype(np.uint8)
+    np.testing.assert_array_equal(np.asarray(jC.planar(img)),
+                                  tC.planar(img).numpy())
+    np.testing.assert_array_equal(np.asarray(jC.planar_stack(stack)),
+                                  tC.planar_stack(stack).numpy())
+    assert tC.planar_stack(torch.from_numpy(stack)).shape == (4, 3, 5, 7)
+
+
+def test_select_tex_matches_jax():
+    """Ids inside the atlas, and outside it on both sides (zeros)."""
+    A, _ = assets()
+    atlas_p = np.asarray(A["atlas_p"])  # [4, A, S, S] u8
+    n = atlas_p.shape[1]
+    sids = np.array([0, 3, n - 1, -1, n, 7], np.int32)
+    want = np.asarray(jax.jit(jC.select_texs)(atlas_p, sids).astype(
+        jnp.float32))
+    got = tC.select_texs(torch.from_numpy(atlas_p), torch.from_numpy(sids))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    np.testing.assert_array_equal(want, got.float().numpy())
+    for s in (2, n + 3):
+        one = np.asarray(jax.jit(jC.select_tex)(atlas_p, np.int32(s)).astype(
+            jnp.float32))
+        np.testing.assert_array_equal(
+            one, tC.select_tex(torch.from_numpy(atlas_p), s).float().numpy())
+
+
+def _prem_patches(rng, n, k, P):
+    """Premultiplied bf16 patches [n, k, 4, P, P] as a bank makes them:
+    whole texels in [0, 255] times a fractional alpha, some fully clear."""
+    rgb = rng.integers(0, 256, (n, k, 3, P, P)).astype(np.float32)
+    a = rng.integers(0, 256, (n, k, 1, P, P)).astype(np.float32) / 255.0
+    a[rng.random((n, k, 1, P, P)) < 0.2] = 0.0
+    prem = np.concatenate([rgb * a, a], 2)
+    return jnp.asarray(prem).astype(jnp.bfloat16), torch.from_numpy(
+        prem).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("P", [4, 8, 20])
+def test_place_stamps_matches_jax(P):
+    """Overlapping stamps (an f32 sum rounded once) and stamps off every
+    edge, partly and wholly, at 64 px."""
+    rng = np.random.default_rng(P)
+    K = 9
+    jprem, tprem = _prem_patches(rng, N, K, P)
+    r0 = rng.integers(-P - 6, 64 + 6, (N, K)).astype(np.int32)
+    c0 = rng.integers(-P - 6, 64 + 6, (N, K)).astype(np.int32)
+    r0[:, :3], c0[:, :3] = 30, 28  # three on one spot
+    jr, ja = jax.jit(jC.place_stamps)(jprem, r0, c0)
+    tr, ta = tC.place_stamps(tprem, torch.from_numpy(r0),
+                             torch.from_numpy(c0))
+    assert tr.dtype == torch.bfloat16 and tr.shape == (N, 3, 64, 64)
+    np.testing.assert_array_equal(np.asarray(jr.astype(jnp.float32)),
+                                  tr.float().numpy())
+    np.testing.assert_array_equal(np.asarray(ja.astype(jnp.float32)),
+                                  ta.float().numpy())
+
+
+@pytest.mark.parametrize("P", [8, 12])
+def test_sprite_stamps_matches_jax(P):
+    """K sprites per env on a moving camera: sizes up to the patch, some
+    dead, flipped, off the frame, with variants outside the bank."""
+    A, _ = assets()
+    atlas_p = np.asarray(A["atlas_p"])
+    bank = np.ascontiguousarray(atlas_p[:, :6].transpose(1, 0, 2, 3))
+    V = bank.shape[0]
+    rng = np.random.default_rng(30 + P)
+    K = 7
+    (wx, wy), (twx, twy) = coords(rng, 4.0, 12.0)
+    var = rng.integers(-1, V + 1, (N, K)).astype(np.int32)
+    xs = (wx[:, :1] + rng.uniform(-3, 14, (N, K))).astype(np.float32)
+    ys = (wy[:, :1] + rng.uniform(-3, 14, (N, K))).astype(np.float32)
+    ws = rng.uniform(0.3, (P - 1) / 4.8, (N, K)).astype(np.float32)
+    hs = rng.uniform(0.3, (P - 1) / 4.8, (N, K)).astype(np.float32)
+    flips = rng.random((N, K)) < 0.5
+    alives = rng.random((N, K)) < 0.8
+    fn = jax.jit(functools.partial(jC.sprite_stamps, patch=P))
+    jr, ja = fn(bank, var, xs, ys, ws, hs, wx, wy, flips, alives)
+    t = torch.from_numpy
+    tr, ta = tC.sprite_stamps(t(bank), t(var), t(xs), t(ys), t(ws), t(hs),
+                              twx, twy, t(flips), t(alives), patch=P)
+    np.testing.assert_array_equal(np.asarray(jr.astype(jnp.float32)),
+                                  tr.float().numpy())
+    np.testing.assert_array_equal(np.asarray(ja.astype(jnp.float32)),
+                                  ta.float().numpy())
+    assert float(ta.float().sum()) > 0
