@@ -1,0 +1,10 @@
+"""rollout.actions_ms_per_step: the device time of the rollout's action draws
+(each step's key split and uniform draw): the time of the kernels that run
+between each `trace_mark_actions` kernel and the next mark, summed over the
+profiled slice, over its batched steps (`benchmark/layers.py`). Nothing is
+read where the program launches no marks."""
+from benchmark import layers
+
+
+def read(run):
+    return layers.ms_per_step(run, "actions")

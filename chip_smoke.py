@@ -2073,12 +2073,17 @@ def graph_pool_bytes(graph):
 
 
 def replay_profile(fn):
-    """torch.profiler over one call of fn: ({kernel name: launches},
-    summed device ms), or (None, None) where it saw no device events."""
+    """torch.profiler over one call of fn, a rollout: ({kernel name:
+    launches}, summed device ms), or (None, None) where it saw no device
+    events. The first rollout under a profiler captures the graph with its
+    layer marks (`utils/trace.py`), so fn runs once under a profiler
+    first, and the second call, a replay of that graph, is the one read."""
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()

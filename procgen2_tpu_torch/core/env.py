@@ -25,6 +25,7 @@ from typing import Any
 import torch
 
 from .. import random as prng
+from ..utils import trace
 from ..utils.tree import bank_gather, key_field, tree_map, tree_select
 
 OBS_KEY = "screen"  # the reference obs dict key, games/maze/maze.cpp:117
@@ -89,9 +90,11 @@ class Environment:
         """`num_levels` levels in one batched `generate`; level i is keyed
         by fold_in(key, start_level + i), so a (key, level id) pair names
         the same level across runs and bank sizes."""
-        ids = torch.arange(num_levels, dtype=torch.int64,
-                           device=self.device) + start_level
-        return self.game.generate(self.cfg, prng.fold_in(self._key(key), ids))
+        with trace.span("env.generate_bank"):
+            ids = torch.arange(num_levels, dtype=torch.int64,
+                               device=self.device) + start_level
+            return self.game.generate(self.cfg,
+                                      prng.fold_in(self._key(key), ids))
 
     # ------------------------------------------------------------------
     # Reset / step
@@ -114,21 +117,22 @@ class Environment:
         """`reset` from each env's key [N, 2] (`reset` splits its key into
         N): a ShardedEnv resets its rows of the global batch with their
         rows of the split."""
-        num_envs = self._key(keys).shape[0]
-        gs, k_state = self._fresh(bank, keys)
-        state = EnvState(
-            game=gs,
-            ep_return=torch.zeros(num_envs, dtype=torch.float32,
-                                  device=self.device),
-            ep_length=torch.zeros(num_envs, dtype=torch.int32,
-                                  device=self.device),
-            rng=k_state)
-        z = torch.zeros(num_envs, dtype=torch.bool, device=self.device)
-        return state, TimeStep(
-            obs=self._observe_batch(gs),
-            reward=torch.zeros(num_envs, dtype=torch.float32,
-                               device=self.device),
-            terminated=z, truncated=z.clone(), info={})
+        with trace.span("env.reset"):
+            num_envs = self._key(keys).shape[0]
+            gs, k_state = self._fresh(bank, keys)
+            state = EnvState(
+                game=gs,
+                ep_return=torch.zeros(num_envs, dtype=torch.float32,
+                                      device=self.device),
+                ep_length=torch.zeros(num_envs, dtype=torch.int32,
+                                      device=self.device),
+                rng=k_state)
+            z = torch.zeros(num_envs, dtype=torch.bool, device=self.device)
+            return state, TimeStep(
+                obs=self._observe_batch(gs),
+                reward=torch.zeros(num_envs, dtype=torch.float32,
+                                   device=self.device),
+                terminated=z, truncated=z.clone(), info={})
 
     def reset_pinned(self, bank, key, fold_ids=None):
         """Env i on level i of the bank; env i's key is
@@ -155,33 +159,42 @@ class Environment:
         bank. The draw is made for every env on every step, done or not
         (split(rng, 3) -> next rng, level draw, reset key), as in the JAX
         package. `action` int [N] (or [N, 1]); `render=False` leaves
-        ts.obs None."""
-        if action.ndim > 1:
-            action = action.squeeze(-1)
-        gs, reward, terminated, info = self.game.step(self.cfg, state.game,
-                                                      action)
-        ep_return = state.ep_return + reward
-        ep_length = state.ep_length + 1
+        ts.obs None. Under a profiler its three layers are traced
+        (`utils/trace.py`)."""
+        dev = self.device
+        trace.mark("game_step", dev)
+        with trace.span("env.game_step"):
+            if action.ndim > 1:
+                action = action.squeeze(-1)
+            gs, reward, terminated, info = self.game.step(self.cfg, state.game,
+                                                          action)
+            ep_return = state.ep_return + reward
+            ep_length = state.ep_length + 1
 
-        k = prng.split(state.rng, 3)
-        idx = prng.randint(k[:, 1], (), 0, self._num_levels(bank))
-        fresh = self.game.reset(self.cfg, bank_gather(bank, idx.long()),
-                                k[:, 2])
-        gs = tree_select(terminated, fresh, gs)
+        trace.mark("auto_reset", dev)
+        with trace.span("env.auto_reset"):
+            k = prng.split(state.rng, 3)
+            idx = prng.randint(k[:, 1], (), 0, self._num_levels(bank))
+            fresh = self.game.reset(self.cfg, bank_gather(bank, idx.long()),
+                                    k[:, 2])
+            gs = tree_select(terminated, fresh, gs)
 
-        info = dict(info)
-        info.update(returned_episode_return=ep_return,
-                    returned_episode_length=ep_length, done=terminated)
-        new_state = EnvState(
-            game=gs,
-            ep_return=torch.where(terminated, 0.0, ep_return),
-            ep_length=torch.where(terminated, 0, ep_length),
-            rng=k[:, 0])
-        obs = self._observe_batch(gs) if render else None
-        return new_state, TimeStep(obs=obs, reward=reward,
-                                   terminated=terminated,
-                                   truncated=torch.zeros_like(terminated),
-                                   info=info)
+            info = dict(info)
+            info.update(returned_episode_return=ep_return,
+                        returned_episode_length=ep_length, done=terminated)
+            new_state = EnvState(
+                game=gs,
+                ep_return=torch.where(terminated, 0.0, ep_return),
+                ep_length=torch.where(terminated, 0, ep_length),
+                rng=k[:, 0])
+
+        trace.mark("render", dev)
+        with trace.span("env.render"):
+            obs = self._observe_batch(gs) if render else None
+            ts = TimeStep(obs=obs, reward=reward, terminated=terminated,
+                          truncated=torch.zeros_like(terminated), info=info)
+        trace.mark("end", dev)
+        return new_state, ts
 
     def step_raw(self, state: EnvState, action, render: bool = True):
         """Step without auto-reset: a done env returns its terminal state

@@ -32,6 +32,16 @@ back to stepping eagerly on the card.
 
 The kernel wrappers' `.launches` counters count what the host issues:
 a capture adds each kernel once, and a replay adds nothing.
+
+Under a profiler (`utils/trace.py`) the host's side runs in the spans
+`rollout.graph_key` (the key and its lookup in the table),
+`rollout.capture`, `rollout.copy_in`, `rollout.launch` and
+`rollout.clone`, and the steps launch their layer marks. A graph is
+keyed on whether a profiler records: the first call under one captures
+a marked graph, once, in the env's pool, and replays it while the
+profiler runs; the first call with none evicts every marked graph and
+replays the plain one. A call with no profiler never builds, captures or
+launches a mark.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ import torch
 
 from .. import random as prng
 from ..render import compositor
+from ..utils import trace
 from ..utils.tree import tree_leaves, tree_map
 
 GRAPHS_PER_ENV = 4  # captured rollouts kept per Environment
@@ -61,20 +72,26 @@ class RolloutBuffer:
 
 def _scan(inner, bank, state, key, num_steps, policy, policy_state):
     """The T steps, eagerly: (final state, RolloutBuffer)."""
-    num_envs = state.ep_length.shape[0]
+    num_envs, dev = state.ep_length.shape[0], key.device
     outs = []
     for _ in range(num_steps):
-        key, k_act = prng.split(key).unbind(-2)
-        if policy is None:
-            n = inner.game.action_space(inner.cfg).nvec[0]
-            actions = prng.randint(k_act, (num_envs,), 0, n)
-        else:
-            actions = policy(policy_state, k_act)
+        trace.mark("actions", dev)
+        with trace.span("rollout.actions"):
+            key, k_act = prng.split(key).unbind(-2)
+            if policy is None:
+                n = inner.game.action_space(inner.cfg).nvec[0]
+                actions = prng.randint(k_act, (num_envs,), 0, n)
+            else:
+                actions = policy(policy_state, k_act)
         state, ts = inner.step(bank, state, actions)
         outs.append((ts.obs, actions, ts.reward, ts.terminated,
                      ts.info["returned_episode_return"],
                      ts.info["returned_episode_length"]))
-    return state, RolloutBuffer(*(torch.stack(x) for x in zip(*outs)))
+    trace.mark("stack", dev)
+    with trace.span("rollout.stack"):
+        buf = RolloutBuffer(*(torch.stack(x) for x in zip(*outs)))
+    trace.mark("end", dev)
+    return state, buf
 
 
 def _layout(tree, addresses=False):
@@ -119,11 +136,14 @@ class _Graph:
             if isinstance(dst, torch.Tensor):
                 dst.copy_(src)
 
-        tree_map(copy, self.state, state)
-        self.key.copy_(key)
-        tree_map(copy, self.policy_state, policy_state)
-        self.graph.replay()
-        return tree_map(torch.clone, self.out)
+        with trace.span("rollout.copy_in"):
+            tree_map(copy, self.state, state)
+            self.key.copy_(key)
+            tree_map(copy, self.policy_state, policy_state)
+        with trace.span("rollout.launch"):
+            self.graph.replay()
+        with trace.span("rollout.clone"):
+            return tree_map(torch.clone, self.out)
 
 
 class _Table:
@@ -157,8 +177,9 @@ def rollout(env, state, key, num_steps: int,
     on the device by default.
 
     On a CUDA device the T steps run as one CUDA graph, captured the first
-    time for each (env, bank, N, T, policy) and replayed after; on the CPU
-    they run eagerly. The returned tensors are the caller's own.
+    time for each (env, bank, N, T, policy, profiler recording or not) and
+    replayed after; on the CPU they run eagerly. The returned tensors are
+    the caller's own.
 
     A policy takes every tensor it reads through `policy_state`, which is
     copied in before each replay. A replay reads any other tensor at the
@@ -174,18 +195,24 @@ def rollout(env, state, key, num_steps: int,
     if inner.device.type != "cuda":
         return _scan(inner, bank, state, key, num_steps, policy,
                      policy_state)
-    gkey = (num_steps, id(policy), _layout(state), _layout(key),
-            _layout(policy_state), _layout(bank, addresses=True))
-    table = _TABLES.get(inner)
-    if table is None:
-        table = _TABLES[inner] = _Table()
-    g = table.graphs.get(gkey)
-    if g is not None:
-        table.graphs.move_to_end(gkey)
-        return g.replay(state, key, policy_state)
-    while len(table.graphs) >= GRAPHS_PER_ENV:
-        table.graphs.popitem(last=False)  # its memory returns to the pool
-    g = _Graph(inner, bank, state, key, num_steps, policy, policy_state,
-               table.pool)
-    table.graphs[gkey] = g
+    traced = trace.active()
+    with trace.span("rollout.graph_key"):
+        gkey = (traced, num_steps, id(policy), _layout(state), _layout(key),
+                _layout(policy_state), _layout(bank, addresses=True))
+        table = _TABLES.get(inner)
+        if table is None:
+            table = _TABLES[inner] = _Table()
+        if not traced:  # marked graphs go; their memory returns to the pool
+            for k in [k for k in table.graphs if k[0]]:
+                del table.graphs[k]
+        g = table.graphs.get(gkey)
+        if g is not None:
+            table.graphs.move_to_end(gkey)
+    if g is None:
+        while len(table.graphs) >= GRAPHS_PER_ENV:
+            table.graphs.popitem(last=False)  # its memory returns to the pool
+        with trace.span("rollout.capture"):
+            g = _Graph(inner, bank, state, key, num_steps, policy,
+                       policy_state, table.pool)
+        table.graphs[gkey] = g
     return g.replay(state, key, policy_state)

@@ -22,6 +22,7 @@ import torch.distributed as dist
 
 from .. import random as prng
 from ..core.env import Environment, TimeStep
+from ..utils import trace
 
 
 def _group_shape(group=None):
@@ -87,12 +88,15 @@ class ShardedEnv:
     def reset(self, key, bank_key=None):
         """Generate the replicated bank (once), then this rank's rows of
         the reset of all num_envs envs from `key`."""
-        if self._bank is None:
-            bk = bank_key if bank_key is not None else prng.fold_in(key, 17)
-            self._bank = self.env.generate_bank(
-                bk, num_levels=self.num_levels, start_level=self.start_level)
-        keys = prng.split(key, self.num_envs)[self.lo:self.hi]
-        return self.env.reset_keys(self._bank, keys)
+        with trace.span("vec.reset"):
+            if self._bank is None:
+                bk = (bank_key if bank_key is not None
+                      else prng.fold_in(key, 17))
+                self._bank = self.env.generate_bank(
+                    bk, num_levels=self.num_levels,
+                    start_level=self.start_level)
+            keys = prng.split(key, self.num_envs)[self.lo:self.hi]
+            return self.env.reset_keys(self._bank, keys)
 
     def step(self, state, actions):
         """Step this rank's rows: `actions` int [N/W]."""
