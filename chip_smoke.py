@@ -22,10 +22,10 @@ Phases (any failure raises, so the exit code is non-zero and the final
 `ok` line is not printed):
   1. device: a CUDA card must be visible; prints nvidia-smi's name and
      power limit; make("coinrun") (on the card by default);
-  2. build: builds the scene kernels (B1, B5) and the stamp kernels (B3,
-     B4) from their two sources (nvcc, sm_90a, one compiler process each,
-     started together) and prints their times and, per kernel, ptxas's
-     registers, shared memory and spills;
+  2. build: builds the scene kernels (B1, B5), the stamp kernels (B3,
+     B4) and coinrun's step kernel from their three sources (nvcc, sm_90a,
+     one compiler process each, started together) and prints their times
+     and, per kernel, ptxas's registers, shared memory and spills;
   3. kernels vs plain on random inputs at 4096 envs, all bitwise equal:
      the raw scene kernel (B1) on coinrun's shapes; the stamp-over-frame
      kernel (B3) on bossfight's four stamp groups; the stamp-sum kernel
@@ -44,12 +44,14 @@ Phases (any failure raises, so the exit code is non-zero and the final
      calls on the CPU (the reference's matmul semantics) bitwise;
   4. coinrun main path: generate_bank(1024) -> reset(4096) -> lanes 0-2
      placed on the coin, a saw and lava -> 8 steps writing obs into a
-     uint8 [8, 4096, 64, 64, 3] buffer; the launch count shows the path
-     ran the kernel; shapes, dtypes, rewards and obs are checked, and the
-     coin lane must have terminated and restarted; the first 8 envs are
-     re-run on the CPU through the port and must match exactly, auto-resets
-     included; the scene kernel is then held against its plain version
-     on the real scene inputs;
+     uint8 [8, 4096, 64, 64, 3] buffer; the launch counts show the path
+     ran the scene kernel and the step kernel (one launch a step);
+     shapes, dtypes, rewards and obs are checked, and the coin lane must
+     have terminated and restarted; the first 8 envs are re-run on the
+     CPU through the port (the plain step) and must match exactly,
+     auto-resets included; the scene kernel and the step kernel are then
+     held against their plain versions on the real inputs and timed
+     beside their bounds;
   5. where the time goes (coinrun): host wall time of each part of one
      env step, and the device kernels and device time of two steps
      (torch.profiler);
@@ -145,9 +147,9 @@ Phases (any failure raises, so the exit code is non-zero and the final
      (every buffer field, the final state) and a second replay to the
      first; a rollout of 64 envs on the card equal to the same rollout on
      the CPU; the profiler's count of B1/B3 launches in one replay (8 per
-     kernel group); the graph's and the eager loop's env-steps/s, the
-     capture's seconds and the graph's pool, the device's idle share of a
-     replay;
+     kernel group) and of coinrun's step kernel (8); the graph's and the
+     eager loop's env-steps/s, the capture's seconds and the graph's pool,
+     the device's idle share of a replay;
  22. the rollout's graph table (ROADMAP C3): 20 coinrun rollouts at 256
      envs, T = 4, each with a fresh `functools.partial(policy, params)`,
      each equal to its eager loop and reading its own params, with
@@ -241,6 +243,7 @@ import procgen2_tpu_torch as pt  # noqa: E402
 from procgen2_tpu_torch import random as prng  # noqa: E402
 from procgen2_tpu_torch.games import (bossfight, caveflyer, chaser,  # noqa: E402
                                      climber, coinrun, jumper, maze)
+from procgen2_tpu_torch.physics import coinrun_step  # noqa: E402
 from procgen2_tpu_torch.render import compositor  # noqa: E402
 from procgen2_tpu_torch.render import scene_kernel, stamp_kernel  # noqa: E402
 from procgen2_tpu_torch.utils import (bank_gather, tree_map,  # noqa: E402
@@ -1263,10 +1266,12 @@ def cpu_rerun(game, bank, actions, obs_buf, states, out, place, lanes,
 
 
 def build_kernels():
-    """Build both kernels from this checkout, one nvcc process each,
-    started together; print their times and ptxas registers/spills."""
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        recs = list(pool.map(lambda m: m.build(), (scene_kernel, stamp_kernel)))
+    """Build the kernels from this checkout (the scene and stamp kernels,
+    coinrun's step), one nvcc process per source, started together;
+    print their times and ptxas registers/spills."""
+    mods = (scene_kernel, stamp_kernel, coinrun_step)
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        recs = list(pool.map(lambda m: m.build(), mods))
     for rec in recs:
         log(f"build: {rec['name']} {rec['seconds']:.1f} s "
             f"({'cached' if rec['cached'] else 'nvcc'})")
@@ -1276,10 +1281,38 @@ def build_kernels():
                 log(f"  ptxas: {line.strip()}")
 
 
+def step_bound(gs):
+    """Least time in ms of coinrun's step kernel on State gs: bytes, each
+    input other than the grid read once, each output written once, and
+    one 3x3 window of the grid per env (the agent's first; the kernel
+    reads more cells, so this bounds from below)."""
+    lv = gs.level
+    n = gs.pos.shape[0]
+    ins = tensor_bytes(gs.pos, gs.vel, gs.on_ground, gs.face_forward,
+                       gs.anim_t, gs.mob_pos, gs.mob_vx, lv.mob_alive,
+                       lv.saw_pos, lv.saw_alive, lv.coin_pos, gs.t) + 4 * n
+    outs = tensor_bytes(gs.pos, gs.vel, gs.on_ground, gs.face_forward,
+                        gs.anim_t, gs.mob_pos, gs.mob_vx, gs.t) + 5 * n
+    return bound(ins + outs + 9 * n, 0)
+
+
+def step_vs_plain(cfg, gs, action, iters):
+    """Coinrun's step kernel against the plain step on State gs and int32
+    action [N]: every output bitwise equal (raises otherwise). Returns
+    (kernel ms, plain ms), CUDA events."""
+    got = coinrun.step(cfg, gs, action)
+    want = coinrun.step_reference(cfg, gs, action)
+    same_tree(got[:3], want[:3], "coinrun step kernel vs plain")
+    ms = cuda_ms(lambda: coinrun.step(cfg, gs, action), iters)
+    plain_ms = cuda_ms(lambda: coinrun.step_reference(cfg, gs, action), 3)
+    return ms, plain_ms
+
+
 def coinrun_path(actions):
     """Coinrun's main path, its checks, the CPU re-run, the scene kernel
-    against its plain version on the real inputs, and the breakdown.
-    Returns the kernel's JSON entry (without the random-input numbers)."""
+    and the step kernel against their plain versions on the real inputs,
+    and the breakdown. Returns both kernels' JSON entries (the scene
+    kernel's without the random-input numbers)."""
     env = pt.make("coinrun")  # the documented entry point: on the card
     bank = make_bank(env)
     obs_buf = torch.empty((T, NUM_ENVS, 64, 64, 3), dtype=torch.uint8,
@@ -1288,8 +1321,13 @@ def coinrun_path(actions):
     def place(gs):
         return place_on_hazards(gs, CPU_ENVS)
 
+    coinrun_step.step.launches = 0
     states, out, lanes, [launches] = drive(env, bank, actions, obs_buf,
                                            place, scene_kernel.scene_raw)
+    step_launches = coinrun_step.step.launches
+    if step_launches != 2 * T:  # drive's two runs, one launch a step
+        raise AssertionError(f"the coinrun main path launched the step "
+                             f"kernel {step_launches} times, expected {2 * T}")
     rewards, dones = check_outputs(obs_buf, out, (0.0, 10.0))
     # the coin lane ends its episode on step 0 and restarts from the bank
     if not (bool(dones[0, 0]) and float(rewards[0, 0]) == 10.0
@@ -1315,6 +1353,13 @@ def coinrun_path(actions):
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
         f"ms ({bound_by}); blend operations {scene_work(inputs)[1]}")
 
+    step_ms, step_plain = step_vs_plain(env.cfg, state.game, actions[-1], 20)
+    step_b, step_by = step_bound(state.game)
+    log(f"coinrun step kernel vs plain on the last step's state, "
+        f"N={NUM_ENVS}: bitwise equal; kernel {step_ms:.4f} ms, plain "
+        f"{step_plain:.4f} ms, bound {step_b:.4f} ms ({step_by}); launches "
+        f"{step_launches} over the main path's two runs of {T} steps")
+
     img = scene_kernel.scene_raw(*inputs)
     breakdown(env, bank, state, actions[-1], obs_buf, [
         ("scene inputs (coinrun._scene_inputs)",
@@ -1323,11 +1368,17 @@ def coinrun_path(actions):
         ("round / clip / uint8",
          lambda: torch.clamp(torch.round(img), 0, 255).to(torch.uint8)),
     ])
-    return dict(name="scene_raw", route="cuda",
-                source="procgen2_tpu_torch/render/csrc/scene_kernel.cu",
-                replaces="procgen2_tpu/render/scene_kernel.py:206",
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return (dict(name="scene_raw", route="cuda",
+                 source="procgen2_tpu_torch/render/csrc/scene_kernel.cu",
+                 replaces="procgen2_tpu/render/scene_kernel.py:206",
+                 launches=launches, max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None),
+            dict(name="coinrun_step", route="cuda",
+                 source="procgen2_tpu_torch/render/csrc/coinrun_step.cu",
+                 replaces=None, launches=step_launches, max_abs_err=0.0,
+                 ms=step_ms, plain_ms=step_plain, bound_ms=step_b,
+                 bound_by=step_by, library_ms=None))
 
 
 def bossfight_path(actions):
@@ -2052,6 +2103,9 @@ KERNEL_OF = {"scene_raw_kernel": scene_kernel.scene_raw,
              "stamp_composite_kernel": stamp_kernel.composite,
              "stamp_sum_kernel": stamp_kernel.stamps}
 ROLLOUT_KERNELS = tuple(KERNEL_OF)
+# the games whose step is one kernel launch, by the name of its __global__
+# function: one per step of a replay
+STEP_KERNEL_OF = {"coinrun": "coinrun_step_kernel"}
 ROLLOUT_CPU_ENVS = 64
 
 
@@ -2092,7 +2146,7 @@ def replay_profile(fn):
         return None, None
     counts = {}
     for e in kernels:
-        for k in ROLLOUT_KERNELS:
+        for k in ROLLOUT_KERNELS + tuple(STEP_KERNEL_OF.values()):
             if k + "(" in e.name or e.name == k or k + "<" in e.name:
                 counts[k] = counts.get(k, 0) + 1
     return counts, sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -2171,6 +2225,9 @@ def rollout_path(name, cfg, kernels, n_levels=NUM_LEVELS, n_envs=NUM_ENVS,
     if counts is not None:
         want = {k: kernels.get(k, 0) for k in ROLLOUT_KERNELS}
         got = {k: counts.get(k, 0) for k in ROLLOUT_KERNELS}
+        for game, k in STEP_KERNEL_OF.items():
+            want[k] = T if name == game else 0
+            got[k] = counts.get(k, 0)
         if got != want:
             raise AssertionError(f"{label} rollout: one replay launched "
                                  f"{got}, expected {want}")
@@ -3313,7 +3370,7 @@ def main():
                             generator=g, device=dev, dtype=torch.int32)
 
     # ---- 4, 5. coinrun: main path, checks, breakdown ----
-    scene = coinrun_path(actions)
+    scene, step = coinrun_path(actions)
     # ---- 6, 7. bossfight: main path, checks, breakdown ----
     stamp = bossfight_path(actions)
     # ---- 8, 9, 10. climber: main path, entry points, breakdown ----
@@ -3436,7 +3493,7 @@ def main():
     sums["max_abs_err"] = max(sums["max_abs_err"], err4_r)
     field["max_abs_err"] = max(field["max_abs_err"], err5_r)
     log(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [scene, stamp, sums, field]}))
+    log(json.dumps({"kernels": [scene, stamp, sums, field, step]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

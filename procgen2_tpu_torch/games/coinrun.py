@@ -23,6 +23,7 @@ import torch
 
 from .. import random as prng
 from ..core import spaces
+from ..physics import coinrun_step
 from ..physics.aabb import check_collision
 from ..physics.tiles import (
     DOWN_ONLY, FULL, NONE, fetch_window_patch, resolve_from_patch,
@@ -541,7 +542,43 @@ def _agent_substep(cfg, level, pos, vel, on_ground, face_forward, a):
 
 def step(cfg: Config, state: State, action):
     """One env step for every env: (State, reward f32 [N], done bool [N],
-    info {})."""
+    info {}). On a CUDA device the whole step is one kernel launch
+    (`physics/coinrun_step.py`); elsewhere `step_reference`, the plain
+    torch step, which the kernel equals bit for bit."""
+    if state.pos.device.type == "cuda":
+        return _step_kernel(state, action)
+    return step_reference(cfg, state, action)
+
+
+# The kernel's constants, each the Python float that `step_reference`
+# hands to torch, and its collision LUTs.
+_STEP_CONSTS = coinrun_step.Consts(
+    dt=DT, mix_ground=MIX, mix_air=MIX * AIR_CONTROL, max_speed=MAX_SPEED,
+    max_jump=MAX_JUMP, gravity_dt=GRAVITY * DT, anim_dt=0.1 * DT,
+    down_only_vy=0.01, sensor_dy=0.6, mob_top=0.48, mob_h=0.98,
+    coin_reward=10.0)
+_STEP_LUTS = tuple(coinrun_step.pack_lut(lut) for lut in (
+    _LUT_AGENT, _LUT_LAVA, _LUT_WALL, _LUT_EMPTY))
+
+
+def _step_kernel(state: State, action):
+    """`step` as one launch of the coinrun step kernel."""
+    level = state.level
+    (pos, vel, on_ground, face_forward, anim_t, mob_pos, mob_vx, t, reward,
+     done) = coinrun_step.step(
+        level.grid, state.pos, state.vel, state.on_ground,
+        state.face_forward, state.anim_t, state.mob_pos, state.mob_vx,
+        level.mob_alive, level.saw_pos, level.saw_alive, level.coin_pos,
+        state.t, action.to(torch.int32), consts=_STEP_CONSTS,
+        luts=_STEP_LUTS, oob=WALL_MID, sub_steps=SUB_STEPS)
+    new_state = State(level=level, pos=pos, vel=vel, on_ground=on_ground,
+                      face_forward=face_forward, anim_t=anim_t,
+                      mob_pos=mob_pos, mob_vx=mob_vx, t=t, rng=state.rng)
+    return new_state, reward, done, {}
+
+
+def step_reference(cfg: Config, state: State, action):
+    """The plain torch step (`step`'s result on any device)."""
     level = state.level
     a = action.to(torch.int32)
     N = a.shape[0]

@@ -15,9 +15,12 @@ surface: `dist.rollout` as one CUDA graph against eager steps, a graph
 per bank, the graph table's bound and shared pool under fresh policies
 and interleaved replays, and a checkpoint round trip on the card; the
 main paths at the other configs (chip_smoke.MODE_CASES), make_vec in one
-process and make(wave_game) on the card; and the reference's own levels
+process and make(wave_game) on the card; the reference's own levels
 (two seeds of each kernel game at 256 envs) through rollout graphs
-against the CPU.
+against the CPU; and coinrun's step kernel against the plain torch step,
+bit for bit: 64 auto-resetting steps at 1, 37 and 4096 envs in four
+configs, the crafted lanes of tests/coinrun_lanes.py, and a T = 8 rollout
+graph against its eager loops.
 
 They skip without a card. This file imports no jax, so it runs on a
 machine without it; there, skip the repo's conftest (which sets jax up):
@@ -33,7 +36,8 @@ import chip_smoke
 import procgen2_tpu_torch as pt
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch import trig
-from procgen2_tpu_torch.games import caveflyer, climber, jumper
+from procgen2_tpu_torch.games import caveflyer, climber, coinrun, jumper
+from procgen2_tpu_torch.physics import coinrun_step
 from procgen2_tpu_torch.render import compositor
 from procgen2_tpu_torch.render import scene_kernel as sk
 from procgen2_tpu_torch.render import stamp_kernel as stk
@@ -471,9 +475,11 @@ def test_make_cuda_names_the_card(dev):
 
 def test_coinrun_on_card_matches_cpu(dev):
     """make(device="cuda") against make(device="cpu"), with lanes placed on
-    the coin, a saw and lava so that auto-reset fires on the card."""
+    the coin, a saw and lava so that auto-reset fires on the card: the
+    card's step kernel (one launch a step) against the CPU's plain step."""
     n = 16
     out = {}
+    launches = coinrun_step.step.launches
     for d in ("cpu", "cuda"):
         env = pt.make("coinrun", device=d)
         bank = env.generate_bank(R.key(5, env.device), n)
@@ -489,6 +495,7 @@ def test_coinrun_on_card_matches_cpu(dev):
             states.append(tree_map(lambda x: x.cpu(), state))
             rewards.append((ts.reward.cpu(), ts.terminated.cpu()))
         out[d] = (states, rewards, frames, lanes)
+    assert coinrun_step.step.launches == launches + 4
     cpu, gpu = out["cpu"], out["cuda"]
     assert cpu[3] == gpu[3]  # the same hazard lanes
     (reward0, done0), state0 = gpu[1][0], gpu[0][0]
@@ -1059,3 +1066,105 @@ def test_reference_levels_on_card_match_cpu(dev, name, monkeypatch):
     assert chip_smoke.reference_check(name, card, cpu) >= 256
     assert {w for w, c in card["counted"].items() if c} == {
         chip_smoke.KERNEL_OF[k].__name__ for k in kernels}
+
+
+# ---- coinrun's step kernel against the plain torch step ----------------
+
+STEP_CONFIGS = {"default": {}, "easy_mode": {"easy_mode": True},
+                "features off": chip_smoke.FEATURES_OFF,
+                "scene_phases=0": {"scene_phases": 0}}
+_INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+
+
+def _bits_same(a, b, what):
+    """Two trees of tensors equal bit for bit (floats by their bits, so
+    that -0.0 is not 0.0 and a NaN equals only its own bits)."""
+    def one(x, y):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            pytest.fail(f"{what}: {x.dtype} {tuple(x.shape)} against "
+                        f"{y.dtype} {tuple(y.shape)}")
+        if x.is_floating_point():
+            x = x.view(_INT_OF_SIZE[x.element_size()])
+            y = y.view(_INT_OF_SIZE[y.element_size()])
+        if not torch.equal(x.cpu(), y.cpu()):
+            pytest.fail(f"{what}: a leaf of shape {tuple(x.shape)} differs")
+    tree_map(one, a, b)
+
+
+@pytest.mark.parametrize("n", [1, 37, 4096])
+@pytest.mark.parametrize("config", sorted(STEP_CONFIGS))
+def test_coinrun_step_kernel_equals_plain_step(dev, config, n):
+    """64 `Environment.step`s with random actions from a state with lanes
+    on the coin, a saw and lava, auto-reset included: at each step the
+    env's step (the kernel, one launch) and the same step with the plain
+    torch step (`coinrun.step_reference`) from the same state give the
+    same next state, reward and done bit for bit."""
+    env = pt.make("coinrun", **STEP_CONFIGS[config])
+    bank = env.generate_bank(R.key(3, dev), 64)
+    state, _ = env.reset(bank, R.key(4, dev), n)
+    gs, _ = chip_smoke.place_on_hazards(state.game, n)
+    state = dataclasses.replace(state, game=gs)
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    ends = 0
+    for i in range(64):
+        a = torch.randint(0, coinrun.NUM_ACTIONS, (n,), generator=g,
+                          device=dev, dtype=torch.int32)
+        before = coinrun_step.step.launches
+        got, ts = env.step(bank, state, a, render=False)
+        assert coinrun_step.step.launches == before + 1
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(coinrun, "step", coinrun.step_reference)
+            want, wts = env.step(bank, state, a, render=False)
+        assert coinrun_step.step.launches == before + 1
+        _bits_same((got, ts.reward, ts.terminated),
+                   (want, wts.reward, wts.terminated), f"{config}, step {i}")
+        ends += int(ts.terminated.sum())
+        state = got
+    assert ends > 0  # lane 0 sits on its coin
+
+
+def test_coinrun_step_kernel_on_crafted_lanes(dev):
+    """The crafted lanes (tests/coinrun_lanes.py: the coin, a saw and lava
+    reached in sub-steps 1, 2 and 3, the one-way crate landed on, fallen
+    through and passed from below, a mob walked into, mobs turning at a
+    wall and at a ledge, a dead mob, slots beyond the first 32) stepped
+    10 times: the kernel equals the plain step bit for bit at each."""
+    import coinrun_lanes as lanes
+    env = pt.make("coinrun")
+    bank = env.generate_bank(R.key(0, dev), 4)
+    state, _ = env.reset(bank, R.key(1, dev), lanes.N)
+    gs, a = lanes.crafted(state.game)
+    for i in range(10):
+        got = coinrun.step(env.cfg, gs, a)
+        want = coinrun.step_reference(env.cfg, gs, a)
+        _bits_same(got[:3], want[:3], f"crafted lanes, step {i}")
+        if i == 0:
+            k = lanes.active_sub_steps(got[0].anim_t)
+            assert set(k[lanes.group("coin")].tolist()) >= {1, 2, 3}
+        gs = got[0]
+    assert bool((gs.mob_vx[:, :2] < 0).any(0).all())  # both mobs turned
+
+
+def test_coinrun_rollout_graph_runs_the_step_kernel(dev):
+    """A T = 8 `dist.rollout` graph of coinrun in easy mode on 200 levels
+    at 1024 envs, each step one launch of the step kernel, equals its
+    eager loop of `Environment.step`, and that loop equals the same loop
+    on the plain torch step, bit for bit: every buffer field and the
+    final state."""
+    from procgen2_tpu_torch.dist import rollout
+    vec, state = _rollout_env("coinrun", n_levels=200, n_envs=1024,
+                              easy_mode=True)
+    before = coinrun_step.step.launches
+    final, buf = rollout(vec, state, R.key(5, dev), 8)
+    assert coinrun_step.step.launches > before  # warm-up and capture
+    fields = [buf.obs, buf.actions, buf.rewards, buf.dones, buf.ep_returns,
+              buf.ep_lengths]
+    efinal, efields = _eager(vec, state, buf.actions)
+    _bits_same((final, fields), (efinal, efields), "graph vs eager loop")
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(coinrun, "step", coinrun.step_reference)
+        pfinal, pfields = _eager(vec, state, buf.actions)
+    _bits_same((efinal, efields), (pfinal, pfields),
+               "eager loop vs the plain step's")
