@@ -42,6 +42,7 @@ from ..render import atlas as atlas_lib
 from ..render import compositor as C
 from ..render import stamp_kernel
 from ..trig import sincos32
+from ..utils import trace
 from ..utils.consts import const
 from ..utils.tree import key_field
 
@@ -973,6 +974,9 @@ def _stamp_groups(cfg: Config, states: State):
 
 def observe_batch(cfg: Config, states: State):
     """Planar uint8 [N, 3, 64, 64]: background, then the four stamp groups
-    in one stamp-kernel launch on the card."""
-    img = stamp_kernel.composite(*_stamp_groups(cfg, states))
+    in one stamp-kernel launch on the card. Under a profiler the cull and
+    the groups are the span `render.stamp_groups`."""
+    with trace.span("render.stamp_groups"):
+        img, groups = _stamp_groups(cfg, states)
+    img = stamp_kernel.composite(img, groups)
     return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)

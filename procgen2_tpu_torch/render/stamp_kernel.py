@@ -28,6 +28,8 @@ import functools
 
 import torch
 
+from ..utils import trace
+
 _BF16 = torch.bfloat16
 MAX_GROUPS = 4  # stamps::kMaxGroups in csrc/stamps.cuh
 TILE_COLS = 8  # stamps::kTileCols: the kernels move frame rows 8 bf16 at a time
@@ -226,8 +228,9 @@ def check_tiles(obs, *tensors):
 def composite(img, groups):
     """Blend the stamp groups over `img` (arguments and result as
     `composite_reference`). CUDA tensors launch the kernel, once for all
-    groups (dtypes, shapes and devices are checked, nothing is converted);
-    CPU tensors run the plain version."""
+    groups (dtypes, shapes and devices are checked, nothing is converted),
+    the launch the span `render.b3` under a profiler; CPU tensors run the
+    plain version."""
     if img.device.type == "cpu":
         return composite_reference(img, groups)
     if img.device.type != "cuda":
@@ -240,7 +243,8 @@ def composite(img, groups):
         raise ValueError("composite needs at least one stamp group")
     check_groups(groups, N, dev)
     out = torch.empty_like(img)
-    _kernels()[0]["composite"](img, groups, out)
+    with trace.span("render.b3"):
+        _kernels()[0]["composite"](img, groups, out)
     composite.launches += 1
     return out
 

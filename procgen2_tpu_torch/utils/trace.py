@@ -37,6 +37,11 @@ A rollout of T steps thus launches (actions, game_step, auto_reset,
 render, end) x T, stack, end: 5T + 2 marks. A layer's device time is
 that of the kernels between its mark and the next mark; what follows an
 `end` belongs to no layer.
+
+Inside a layer, spans with no mark name its parts on the host:
+`render.stamp_groups` (bossfight's cull and stamp groups) and `render.b3`
+(the stamp kernel's launch, `render/stamp_kernel.py::composite`); on the
+device B3 is found by its kernel's name, `stamp_composite_kernel`.
 """
 from __future__ import annotations
 

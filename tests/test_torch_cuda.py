@@ -20,7 +20,10 @@ process and make(wave_game) on the card; the reference's own levels
 against the CPU; and coinrun's step kernel against the plain torch step,
 bit for bit: 64 auto-resetting steps at 1, 37 and 4096 envs in four
 configs, the crafted lanes of tests/coinrun_lanes.py, and a T = 8 rollout
-graph against its eager loops.
+graph against its eager loops; bossfight's T = 8 rollout graph in easy
+mode at 4096 envs, late in its episodes and with rings past the render's
+cull, against the benchmark's plain reference on sampled rows; and the
+render's spans of a profiled bossfight step.
 
 They skip without a card. This file imports no jax, so it runs on a
 machine without it; there, skip the repo's conftest (which sets jax up):
@@ -1168,3 +1171,71 @@ def test_coinrun_rollout_graph_runs_the_step_kernel(dev):
         pfinal, pfields = _eager(vec, state, buf.actions)
     _bits_same((efinal, efields), (pfinal, pfields),
                "eager loop vs the plain step's")
+
+
+def test_bossfight_easy_graph_rollout_equals_the_benchmark_reference(dev):
+    """A T = 8 `dist.rollout` graph of bossfight in easy mode on 200 levels
+    at 4096 envs, from a state 24 calls into the loop with rows 0 and 1
+    ending their episodes (`chip_smoke.place_boss_deaths`) and rows 2-33
+    crowded past the render's 36-bullet cull (tests/bossfight_lanes.py),
+    equals the benchmark's plain reference on sampled rows, bit for bit:
+    every buffer field and the final state. The sample holds the crafted
+    rows, the rows past the cull by play, and 64 drawn rows."""
+    import bossfight_lanes as lanes
+    from benchmark import check
+    from benchmark.reference import env as ref_env
+    from procgen2_tpu_torch.dist import make_vec, rollout
+    n, levels, T = 4096, 200, 8
+    vec = make_vec("bossfight", num_envs=n, num_levels=levels, device=dev,
+                   mode="easy")
+    state, _ = vec.reset(R.key(21, dev))
+    for c in range(24):
+        state, _ = rollout(vec, state, R.fold_in(R.key(22, dev), c), T)
+    played = (lanes.drawn_bullets(state.game) > lanes.CULL).nonzero()[:, 0]
+    game = lanes.crowd(chip_smoke.place_boss_deaths(state.game)[0],
+                       range(2, 34))
+    state = dataclasses.replace(state, game=game)
+    drawn = torch.randperm(n, generator=torch.Generator().manual_seed(3))[:64]
+    rows = torch.cat([torch.arange(34), played[:64].cpu(), drawn])
+    rows = rows.unique().to(dev)
+    key = R.key(23, dev)
+    final, buf = rollout(vec, state, key, T)
+    assert buf.dones[0, :2].all()
+    ref = ref_env.Env("bossfight", {"mode": "easy"}, n, levels, dev)
+    ref_state, _ = ref.reset(vec.bank, R.key(21, dev), rows)
+    start = tree_map(lambda _, p: p[rows], ref_state, state)
+    ref_final, ref_buf = ref.rollout(vec.bank, start, key, T, rows)
+    for f in ("obs", "actions", "rewards", "dones", "ep_returns",
+              "ep_lengths"):
+        assert check.differ(getattr(buf, f)[:, rows], getattr(ref_buf, f)) \
+            == 0, f
+    assert check.tree_differ(ref_env.rows_of(final, rows), ref_final) == 0
+
+
+def test_bossfight_render_spans_on_card(dev, monkeypatch):
+    """A profiled eager bossfight step on the card holds the render's spans
+    in order (`env.render`, `render.stamp_groups`, `render.b3`); with no
+    profiler the step enters no range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from procgen2_tpu_torch.dist import make_vec
+    vec = make_vec("bossfight", num_envs=64, num_levels=8, device=dev,
+                   mode="easy")
+    state, _ = vec.reset(R.key(3, dev))
+    a = torch.zeros(64, dtype=torch.int32, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        vec.step(state, a)
+        torch.cuda.synchronize()
+    names = [e.name() for e in sorted(prof.profiler.kineto_results.events(),
+                                      key=lambda e: e.start_ns())
+             if e.device_type() == torch.autograd.DeviceType.CPU
+             and e.name().startswith(("env.render", "render."))]
+    assert names == ["env.render", "render.stamp_groups", "render.b3"]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a range was entered with no profiler")
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    vec.step(state, a)
+    torch.cuda.synchronize()
