@@ -58,12 +58,13 @@ Phases (any failure raises, so the exit code is non-zero and the final
   6. bossfight main path: make("bossfight") -> generate_bank(1024) ->
      reset(4096) -> lane 0's agent placed on the boss (death, -10) and
      lane 1's boss in its last phase with its hit points gone (death, +10)
-     -> 8 steps writing obs into the uint8 buffer; the stamp kernel's
-     launch count, shapes, dtypes, rewards, both lanes' termination and
-     restart, live boss bullets and obs are checked; the first 8 envs are
-     re-run on the CPU and must match exactly at every step; the stamp
-     kernel is then held against its plain version on the real render
-     inputs;
+     -> 8 steps writing obs into the uint8 buffer; the stamp kernel's and
+     the step kernel's launch counts (the step kernel: one a step), shapes,
+     dtypes, rewards, both lanes' termination and restart, live boss
+     bullets and obs are checked; the first 8 envs are re-run on the CPU
+     and must match exactly at every step; the stamp kernel and the step
+     kernel are then held against their plain versions on the real inputs
+     and timed beside their bounds;
   7. where the time goes (bossfight), as in 5;
   8. climber main path: make("climber") -> generate_bank(1024) ->
      reset(4096) -> a lane's agent placed on a live mob (death, 0) and
@@ -243,7 +244,7 @@ import procgen2_tpu_torch as pt  # noqa: E402
 from procgen2_tpu_torch import random as prng  # noqa: E402
 from procgen2_tpu_torch.games import (bossfight, caveflyer, chaser,  # noqa: E402
                                      climber, coinrun, jumper, maze)
-from procgen2_tpu_torch.physics import coinrun_step  # noqa: E402
+from procgen2_tpu_torch.physics import bossfight_step, coinrun_step  # noqa: E402
 from procgen2_tpu_torch.render import compositor  # noqa: E402
 from procgen2_tpu_torch.render import scene_kernel, stamp_kernel  # noqa: E402
 from procgen2_tpu_torch.utils import (bank_gather, tree_map,  # noqa: E402
@@ -1267,9 +1268,9 @@ def cpu_rerun(game, bank, actions, obs_buf, states, out, place, lanes,
 
 def build_kernels():
     """Build the kernels from this checkout (the scene and stamp kernels,
-    coinrun's step), one nvcc process per source, started together;
-    print their times and ptxas registers/spills."""
-    mods = (scene_kernel, stamp_kernel, coinrun_step)
+    coinrun's and bossfight's steps), one nvcc process per source, started
+    together; print their times and ptxas registers/spills."""
+    mods = (scene_kernel, stamp_kernel, coinrun_step, bossfight_step)
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         recs = list(pool.map(lambda m: m.build(), mods))
     for rec in recs:
@@ -1296,16 +1297,45 @@ def step_bound(gs):
     return bound(ins + outs + 9 * n, 0)
 
 
-def step_vs_plain(cfg, gs, action, iters):
-    """Coinrun's step kernel against the plain step on State gs and int32
-    action [N]: every output bitwise equal (raises otherwise). Returns
-    (kernel ms, plain ms), CUDA events."""
-    got = coinrun.step(cfg, gs, action)
-    want = coinrun.step_reference(cfg, gs, action)
-    same_tree(got[:3], want[:3], "coinrun step kernel vs plain")
-    ms = cuda_ms(lambda: coinrun.step(cfg, gs, action), iters)
-    plain_ms = cuda_ms(lambda: coinrun.step_reference(cfg, gs, action), 3)
-    return ms, plain_ms
+def boss_step_bound(gs):
+    """Least time in ms of bossfight's step kernel on State gs: bytes, the
+    state's fields read once and written once, the barriers and the action
+    read, reward and done written."""
+    lv = gs.level
+    n = gs.pos.shape[0]
+    fields = [getattr(gs, name) for name in bossfight._STEP_FIELDS]
+    return bound(2 * tensor_bytes(fields)
+                 + tensor_bytes(lv.barrier_pos, lv.barrier_exists) + 9 * n, 0)
+
+
+def graph_ms(fn, iters):
+    """Mean device time of fn() in ms with no host time between calls: one
+    call captured in a CUDA graph (after a warm-up on a side stream),
+    replayed between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
+def step_vs_plain(game, cfg, gs, action, iters):
+    """A game's step kernel (`game.step` on the card) against its plain
+    step on State gs and int32 action [N]: every output bitwise equal
+    (raises otherwise). Returns (kernel ms eagerly, kernel ms in a graph,
+    plain ms), CUDA events; the eager time includes the wrapper's host
+    time where that is the longer."""
+    got = game.step(cfg, gs, action)
+    want = game.step_reference(cfg, gs, action)
+    same_tree(got[:3], want[:3], f"{game.NAME} step kernel vs plain")
+    ms = cuda_ms(lambda: game.step(cfg, gs, action), iters)
+    in_graph = graph_ms(lambda: game.step(cfg, gs, action), iters)
+    plain_ms = cuda_ms(lambda: game.step_reference(cfg, gs, action), 3)
+    return ms, in_graph, plain_ms
 
 
 def coinrun_path(actions):
@@ -1353,12 +1383,14 @@ def coinrun_path(actions):
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
         f"ms ({bound_by}); blend operations {scene_work(inputs)[1]}")
 
-    step_ms, step_plain = step_vs_plain(env.cfg, state.game, actions[-1], 20)
+    step_ms, step_graph, step_plain = step_vs_plain(
+        coinrun, env.cfg, state.game, actions[-1], 20)
     step_b, step_by = step_bound(state.game)
     log(f"coinrun step kernel vs plain on the last step's state, "
-        f"N={NUM_ENVS}: bitwise equal; kernel {step_ms:.4f} ms, plain "
-        f"{step_plain:.4f} ms, bound {step_b:.4f} ms ({step_by}); launches "
-        f"{step_launches} over the main path's two runs of {T} steps")
+        f"N={NUM_ENVS}: bitwise equal; kernel {step_ms:.4f} ms eagerly, "
+        f"{step_graph:.4f} ms in a graph, plain {step_plain:.4f} ms, bound "
+        f"{step_b:.4f} ms ({step_by}); launches {step_launches} over the "
+        f"main path's two runs of {T} steps")
 
     img = scene_kernel.scene_raw(*inputs)
     breakdown(env, bank, state, actions[-1], obs_buf, [
@@ -1377,22 +1409,27 @@ def coinrun_path(actions):
             dict(name="coinrun_step", route="cuda",
                  source="procgen2_tpu_torch/render/csrc/coinrun_step.cu",
                  replaces=None, launches=step_launches, max_abs_err=0.0,
-                 ms=step_ms, plain_ms=step_plain, bound_ms=step_b,
-                 bound_by=step_by, library_ms=None))
+                 ms=step_ms, graph_ms=step_graph, plain_ms=step_plain,
+                 bound_ms=step_b, bound_by=step_by, library_ms=None))
 
 
 def bossfight_path(actions):
     """Bossfight's main path, its checks, the CPU re-run, the stamp kernel
-    against its plain version on the real render inputs, and the
-    breakdown. Returns the kernel's JSON entry."""
+    and the step kernel against their plain versions on the real inputs,
+    and the breakdown. Returns both kernels' JSON entries."""
     env = pt.make("bossfight")
     bank = make_bank(env)
     obs_buf = torch.empty((T, NUM_ENVS, 64, 64, 3), dtype=torch.uint8,
                           device=env.device)
 
+    bossfight_step.step.launches = 0
     states, out, lanes, [launches] = drive(env, bank, actions, obs_buf,
                                            place_boss_deaths,
                                            stamp_kernel.composite)
+    step_launches = bossfight_step.step.launches
+    if step_launches != 2 * T:  # drive's two runs, one launch a step
+        raise AssertionError(f"the bossfight main path launched the step "
+                             f"kernel {step_launches} times, expected {2 * T}")
     rewards, dones = check_outputs(obs_buf, out, (-10.0, 0.0, 10.0))
     # both lanes end their episodes on step 0 and restart from the bank
     g0 = states[0].game
@@ -1433,6 +1470,15 @@ def bossfight_path(actions):
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); stamp "
         f"blends {stamp_blends(groups, 64)}")
 
+    step_ms, step_graph, step_plain = step_vs_plain(
+        bossfight, env.cfg, gs, actions[-1], 20)
+    step_b, step_by = boss_step_bound(gs)
+    log(f"bossfight step kernel vs plain on the last step's state, "
+        f"N={NUM_ENVS}: bitwise equal; kernel {step_ms:.4f} ms eagerly, "
+        f"{step_graph:.4f} ms in a graph, plain {step_plain:.4f} ms, bound "
+        f"{step_b:.4f} ms ({step_by}); launches {step_launches} over the "
+        f"main path's two runs of {T} steps")
+
     out_img = stamp_kernel.composite(img, groups)
     breakdown(env, bank, states[-1], actions[-1], obs_buf, [
         ("render inputs (bossfight._stamp_groups: _cull_alive, _r0c0)",
@@ -1442,11 +1488,17 @@ def bossfight_path(actions):
         ("round / clip / uint8",
          lambda: torch.clamp(torch.round(out_img), 0, 255).to(torch.uint8)),
     ])
-    return dict(name="composite", route="cuda",
-                source="procgen2_tpu_torch/render/csrc/stamp_kernel.cu",
-                replaces="procgen2_tpu/render/stamp_kernel.py:182",
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return (dict(name="composite", route="cuda",
+                 source="procgen2_tpu_torch/render/csrc/stamp_kernel.cu",
+                 replaces="procgen2_tpu/render/stamp_kernel.py:182",
+                 launches=launches, max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None),
+            dict(name="bossfight_step", route="cuda",
+                 source="procgen2_tpu_torch/render/csrc/bossfight_step.cu",
+                 replaces=None, launches=step_launches, max_abs_err=0.0,
+                 ms=step_ms, graph_ms=step_graph, plain_ms=step_plain,
+                 bound_ms=step_b, bound_by=step_by, library_ms=None))
 
 
 def climber_path(actions):
@@ -2105,7 +2157,8 @@ KERNEL_OF = {"scene_raw_kernel": scene_kernel.scene_raw,
 ROLLOUT_KERNELS = tuple(KERNEL_OF)
 # the games whose step is one kernel launch, by the name of its __global__
 # function: one per step of a replay
-STEP_KERNEL_OF = {"coinrun": "coinrun_step_kernel"}
+STEP_KERNEL_OF = {"coinrun": "coinrun_step_kernel",
+                  "bossfight": "bossfight_step_kernel"}
 ROLLOUT_CPU_ENVS = 64
 
 
@@ -3372,7 +3425,7 @@ def main():
     # ---- 4, 5. coinrun: main path, checks, breakdown ----
     scene, step = coinrun_path(actions)
     # ---- 6, 7. bossfight: main path, checks, breakdown ----
-    stamp = bossfight_path(actions)
+    stamp, boss_step = bossfight_path(actions)
     # ---- 8, 9, 10. climber: main path, entry points, breakdown ----
     sums, field, climber_launches, err1 = climber_path(actions)
     # ---- 11, 12. caveflyer: main path, easy and hard B1, breakdown ----
@@ -3493,7 +3546,8 @@ def main():
     sums["max_abs_err"] = max(sums["max_abs_err"], err4_r)
     field["max_abs_err"] = max(field["max_abs_err"], err5_r)
     log(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [scene, stamp, sums, field, step]}))
+    log(json.dumps({"kernels": [scene, stamp, sums, field, step,
+                                boss_step]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,6 +37,7 @@ import torch
 
 from .. import random as prng
 from ..core import spaces
+from ..physics import bossfight_step
 from ..physics.aabb import check_collision
 from ..render import atlas as atlas_lib
 from ..render import compositor as C
@@ -397,20 +398,22 @@ def _ring_push(pos, vel, rot, frame, num, nxt, new_pos, new_vel, new_rot,
 
 
 @functools.lru_cache(maxsize=None)
-def _volley_tables(device):
+def _volley_arrays():
     """Constant rotations of patterns 0 and 1 (padded to 8 slots), and the
-    radial offsets of pattern 2, f32 [8] each, rounded op by op in f32 as
-    XLA folds them."""
+    radial offsets of pattern 2, numpy f32 [8] each, rounded op by op in
+    f32 as XLA folds them."""
     f = np.float32
     pi = f(math.pi)
     fan = f(math.pi * 1.5) + (np.arange(5) - 2).astype(f) * pi * f(0.125)
     cross = f(math.pi * (1.25 + 8 * 0.0625)) + np.arange(4).astype(f) * pi * f(0.5)
     radial = f(math.pi * 0.25) * np.arange(8).astype(f)
+    return tuple(np.pad(a, (0, 8 - len(a))) for a in (fan, cross, radial))
 
-    def t(a):
-        return torch.from_numpy(np.pad(a, (0, 8 - len(a)))).to(device)
 
-    return t(fan), t(cross), t(radial)
+@functools.lru_cache(maxsize=None)
+def _volley_tables(device):
+    """`_volley_arrays` as f32 tensors on `device`."""
+    return tuple(torch.from_numpy(a).to(device) for a in _volley_arrays())
 
 
 def _fire_pattern(ring, boss_pos, pattern, attack_timer, key, bullet_speed):
@@ -480,7 +483,54 @@ def _hits_barriers(level, x, y):
 
 def step(cfg: Config, state: State, action):
     """One env step for every env: (State, reward f32 [N], done bool [N],
-    info {})."""
+    info {}). On a CUDA device the whole step is one kernel launch
+    (`physics/bossfight_step.py`); elsewhere `step_reference`, the plain
+    torch step, which the kernel equals bit for bit."""
+    if state.pos.device.type == "cuda":
+        return _step_kernel(cfg, state, action)
+    return step_reference(cfg, state, action)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_consts(cfg: Config):
+    """The kernel's constants: each the Python float that `step_reference`
+    hands to torch (the mode's bullet speed and shield jitter among them),
+    and the volley tables."""
+    fan, cross, radial = _volley_arrays()
+    return bossfight_step.Consts(
+        dt=DT, move_mix=MOVE_MIX, move_speed=MOVE_SPEED,
+        lo_x=-HALF + 0.15, hi_x=HALF - 0.15, lo_y=-HALF + 0.1,
+        hi_y=HALF - 0.1, a_bullet_time=A_BULLET_TIME,
+        a_bullet_vy=-A_BULLET_SPEED, bounce_speed=BOUNCE_SPEED,
+        bounce_time=BOUNCE_TIME, explosion_dt=EXPLOSION_RATE * DT,
+        agent_dx=0.15, agent_dy=0.1, agent_w=0.3, agent_h=0.2, boss_dx=0.6,
+        boss_dy=0.4, boss_w=1.2, boss_h=0.8, bullet_half=0.01,
+        bullet_size=0.02, barrier_half=0.1, barrier_size=0.2, half=HALF,
+        unshielded_time=UNSHIELDED_TIME, damage_time=DAMAGE_TIME,
+        move_time=MOVE_TIME, inv_move_time=_INV_MOVE_TIME,
+        target_x_scale=0.7, target_y_shift=0.3, pi=_PI, passive_p=0.1 * DT,
+        bullet_speed=cfg.bullet_speed, shield_jitter=cfg.shield_jitter,
+        fan=tuple(fan.tolist()), cross=tuple(cross.tolist()),
+        radial=tuple(radial.tolist()), boss_hp=BOSS_HP,
+        num_weapons=NUM_WEAPONS)
+
+
+_STEP_FIELDS = tuple(name for name, _, _ in bossfight_step.FIELDS)
+
+
+def _step_kernel(cfg: Config, state: State, action):
+    """`step` as one launch of the bossfight step kernel."""
+    level = state.level
+    fields, reward, done = bossfight_step.step(
+        [getattr(state, name) for name in _STEP_FIELDS], level.barrier_pos,
+        level.barrier_exists, action.to(_I32), consts=_step_consts(cfg),
+        sub_steps=SUB_STEPS)
+    return (State(level=level, **dict(zip(_STEP_FIELDS, fields))), reward,
+            done, {})
+
+
+def step_reference(cfg: Config, state: State, action):
+    """The plain torch step (`step`'s result on any device)."""
     level = state.level
     a = action.to(_I32)
     N = a.shape[0]

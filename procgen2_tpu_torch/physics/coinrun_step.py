@@ -62,7 +62,8 @@ def build():
     return _kernel()[1]
 
 
-def _check(t, dtype, shape, device, name):
+def check_tensor(t, dtype, shape, device, name):
+    """Raise ValueError unless t has this dtype, shape and device."""
     if t.dtype != dtype:
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -104,7 +105,7 @@ def step(grid, pos, vel, on_ground, face_forward, anim_t, mob_pos, mob_vx,
              ("coin_pos", coin_pos, f32, (N, 2)),
              ("t", t, i32, (N,)), ("action", action, i32, (N,)))
     for name, x, dtype, shape in specs:
-        _check(x, dtype, shape, dev, name)
+        check_tensor(x, dtype, shape, dev, name)
     if dev.type != "cuda":
         raise ValueError(f"the coinrun step kernel runs on a CUDA device, "
                          f"not {dev}")

@@ -20,10 +20,14 @@ process and make(wave_game) on the card; the reference's own levels
 against the CPU; and coinrun's step kernel against the plain torch step,
 bit for bit: 64 auto-resetting steps at 1, 37 and 4096 envs in four
 configs, the crafted lanes of tests/coinrun_lanes.py, and a T = 8 rollout
-graph against its eager loops; bossfight's T = 8 rollout graph in easy
-mode at 4096 envs, late in its episodes and with rings past the render's
-cull, against the benchmark's plain reference on sampled rows; and the
-render's spans of a profiled bossfight step.
+graph against its eager loops; bossfight's step kernel against the plain
+torch step, bit for bit: 64 auto-resetting steps at 1, 37 and 4096 envs in
+easy and hard mode, the crafted lanes of tests/bossfight_lanes.py and its
+crowded rings, and a T = 8 rollout graph against its eager loops;
+bossfight's T = 8 rollout graph in easy mode at 4096 envs, late in its
+episodes and with rings past the render's cull, against the benchmark's
+plain reference on sampled rows; and the render's spans of a profiled
+bossfight step.
 
 They skip without a card. This file imports no jax, so it runs on a
 machine without it; there, skip the repo's conftest (which sets jax up):
@@ -39,8 +43,9 @@ import chip_smoke
 import procgen2_tpu_torch as pt
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch import trig
-from procgen2_tpu_torch.games import caveflyer, climber, coinrun, jumper
-from procgen2_tpu_torch.physics import coinrun_step
+from procgen2_tpu_torch.games import (bossfight, caveflyer, climber, coinrun,
+                                      jumper)
+from procgen2_tpu_torch.physics import bossfight_step, coinrun_step
 from procgen2_tpu_torch.render import compositor
 from procgen2_tpu_torch.render import scene_kernel as sk
 from procgen2_tpu_torch.render import stamp_kernel as stk
@@ -1168,6 +1173,107 @@ def test_coinrun_rollout_graph_runs_the_step_kernel(dev):
     _bits_same((final, fields), (efinal, efields), "graph vs eager loop")
     with pytest.MonkeyPatch.context() as m:
         m.setattr(coinrun, "step", coinrun.step_reference)
+        pfinal, pfields = _eager(vec, state, buf.actions)
+    _bits_same((efinal, efields), (pfinal, pfields),
+               "eager loop vs the plain step's")
+
+
+def _boss_actions(g, n, dev):
+    """Random actions with fire (9) in about a third of the envs, so that
+    the agent's ring fills."""
+    a = torch.randint(0, bossfight.NUM_ACTIONS, (n,), generator=g,
+                      device=dev, dtype=torch.int32)
+    fire = torch.rand((n,), generator=g, device=dev) < 0.3
+    return torch.where(fire, 9, a).to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 37, 4096])
+@pytest.mark.parametrize("mode", ["easy", "hard"])
+def test_bossfight_step_kernel_equals_plain_step(dev, mode, n):
+    """64 `Environment.step`s with random actions from a state with lane 0's
+    agent on its boss and (n > 1) lane 1's boss dying, auto-reset
+    included: at each step the env's step (the kernel, one launch) and the
+    same step with the plain torch step (`bossfight.step_reference`) from
+    the same state give the same next state, reward and done bit for
+    bit."""
+    env = pt.make("bossfight", mode=mode)
+    bank = env.generate_bank(R.key(3, dev), 64)
+    state, _ = env.reset(bank, R.key(4, dev), n)
+    gs = state.game
+    gs = (chip_smoke.place_boss_deaths(gs)[0] if n > 1
+          else dataclasses.replace(gs, pos=gs.boss_pos.clone()))
+    state = dataclasses.replace(state, game=gs)
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    ends = 0
+    for i in range(64):
+        a = _boss_actions(g, n, dev)
+        before = bossfight_step.step.launches
+        got, ts = env.step(bank, state, a, render=False)
+        assert bossfight_step.step.launches == before + 1
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(bossfight, "step", bossfight.step_reference)
+            want, wts = env.step(bank, state, a, render=False)
+        assert bossfight_step.step.launches == before + 1
+        _bits_same((got, ts.reward, ts.terminated),
+                   (want, wts.reward, wts.terminated), f"{mode}, step {i}")
+        ends += int(ts.terminated.sum())
+        state = got
+    assert ends > 0  # lane 0 sits on its boss
+
+
+@pytest.mark.parametrize("case", ["crafted", "crowd"])
+def test_bossfight_step_kernel_on_crafted_lanes(dev, case):
+    """The crafted lanes (tests/bossfight_lanes.py: deaths in sub-steps 1-4
+    with the boss ring moving on, a shield bounce and its timeout, HP 0 and
+    the explosion pool, barrier and off-screen hits, both rings full,
+    every volley and the passive shot), or 32 rows of 64 crowded past the
+    render's cull (`crowd`), stepped 10 times in easy mode: the kernel
+    equals the plain step bit for bit at each, one launch a step."""
+    import bossfight_lanes as lanes
+    env = pt.make("bossfight", mode="easy")
+    bank = env.generate_bank(R.key(0, dev), 4)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    if case == "crafted":
+        state, _ = env.reset(bank, R.key(1, dev), lanes.N)
+        gs, a = lanes.crafted(state.game)
+    else:
+        state, _ = env.reset(bank, R.key(1, dev), 64)
+        gs = lanes.crowd(state.game, range(32))
+        a = _boss_actions(g, 64, dev)
+    for i in range(10):
+        before = bossfight_step.step.launches
+        got = bossfight.step(env.cfg, gs, a)
+        assert bossfight_step.step.launches == before + 1
+        want = bossfight.step_reference(env.cfg, gs, a)
+        _bits_same(got[:3], want[:3], f"{case}, step {i}")
+        if i == 0 and case == "crafted":
+            k = lanes.active_sub_steps(gs, got[0])
+            assert k[lanes.group("death")].tolist() == [1, 2, 3, 4, 4, 1, 1, 4]
+        gs = got[0]
+        if case == "crowd":
+            a = _boss_actions(g, 64, dev)
+
+
+def test_bossfight_rollout_graph_runs_the_step_kernel(dev):
+    """A T = 8 `dist.rollout` graph of bossfight in easy mode on 200 levels
+    at 1024 envs, each step one launch of the step kernel, equals its
+    eager loop of `Environment.step`, and that loop equals the same loop
+    on the plain torch step, bit for bit: every buffer field and the
+    final state."""
+    from procgen2_tpu_torch.dist import rollout
+    vec, state = _rollout_env("bossfight", n_levels=200, n_envs=1024,
+                              mode="easy")
+    before = bossfight_step.step.launches
+    final, buf = rollout(vec, state, R.key(5, dev), 8)
+    assert bossfight_step.step.launches > before  # warm-up and capture
+    fields = [buf.obs, buf.actions, buf.rewards, buf.dones, buf.ep_returns,
+              buf.ep_lengths]
+    efinal, efields = _eager(vec, state, buf.actions)
+    _bits_same((final, fields), (efinal, efields), "graph vs eager loop")
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(bossfight, "step", bossfight.step_reference)
         pfinal, pfields = _eager(vec, state, buf.actions)
     _bits_same((efinal, efields), (pfinal, pfields),
                "eager loop vs the plain step's")
