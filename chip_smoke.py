@@ -8,7 +8,7 @@ coinrun, climber, caveflyer and jumper, every game's window render
 (Environment.render at 512 px), the rollout of every game as one CUDA
 graph of T steps, the rollout's graph table under fresh policies, the
 main paths at the other configs (hard, memory, easy_mode, coinrun's
-features off), `make_vec` and `make` of a game module, the bench, the
+features off), `make_vec` and `make` of a game module, the
 Gym adapter, a checkpoint and the guards, the reference's own levels
 played by the parity suites' bots at full width, and every game under a
 PNG overlay with fixtures recorded on the card and replayed on the CPU,
@@ -174,9 +174,6 @@ Phases (any failure raises, so the exit code is non-zero and the final
      the rollout's env-steps/s;
  25. `make(wave_game)` (a game module, not a name) on the card equal to
      the CPU over 45 steps, no kernel launched;
- 26. the bench: `tools.bench_cli.bench_game` for every game at 4096 envs
-     and `procgen2_tpu_torch.bench`'s headline line (maze easy, 8192
-     envs), each record printed;
  27. the surface: `GymEnv("maze")` on the card equal to the CPU over 20
      steps; a checkpoint saved on the card between two rollouts, restored
      and continued, equal to the live continuation; `guards.checked_step`
@@ -238,7 +235,10 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+# the inputs, lanes and assets this script shares with the tests
+sys.path.insert(0, str(ROOT / "tests"))
 
 import procgen2_tpu_torch as pt  # noqa: E402
 from procgen2_tpu_torch import random as prng  # noqa: E402
@@ -249,17 +249,30 @@ from procgen2_tpu_torch.render import compositor  # noqa: E402
 from procgen2_tpu_torch.render import scene_kernel, stamp_kernel  # noqa: E402
 from procgen2_tpu_torch.utils import (bank_gather, tree_map,  # noqa: E402
                                       tree_select)
+from benchmark.roofline import stamp_composite  # noqa: E402
+from benchmark.roofline.peaks import bound  # noqa: E402
+from benchmark.roofline.scene_raw import (STAMP_OPS, TILE_OPS,  # noqa: E402
+                                          stamp_blends, tensor_bytes,
+                                          tile_work)
+from benchmark.roofline.scene_raw import work as scene_work  # noqa: E402
+from game_lanes import (MODE_CASES, T, coinrun_bot_actions,  # noqa: E402
+                        hold_first_action, maze_route_actions,
+                        place_boss_deaths, place_caveflyer_lanes,
+                        place_chaser_lanes, place_climber_lanes,
+                        place_jumper_lanes, place_maze_lanes,
+                        place_on_hazards)
+from kernel_inputs import (EDGE_CASES, ODD_KINDS,  # noqa: E402
+                           SUM_GROUP_SHAPES, edge_field, edge_scene,
+                           edge_stamps, edge_sum_group, random_field,
+                           random_group, random_scene, random_stamps,
+                           random_sum_groups)
+from overlay_assets import synthetic_assets  # noqa: E402
 
-NUM_LEVELS, NUM_ENVS, T = 1024, 4096, 8  # procgen2_tpu/tools/bench_cli.py:18
+# procgen2_tpu/tools/bench_cli.py:18 (its T = 8 is game_lanes.T)
+NUM_LEVELS, NUM_ENVS = 1024, 4096
 CPU_ENVS = 8
 MAZE_LEVELS, MAZE_ENVS = 2048, 8192  # procgen2_tpu/bench.py:31, the headline
 EDGE_ENVS = 257  # envs of the edge cases of phase 3
-# H100 SXM data sheet peaks (at 700 W): device memory, and f32 outside the
-# tensor cores. The sheet's 67 TFLOP/s counts a fused multiply-add as two
-# operations; the kernels are built with --fmad=false and issue each
-# multiply and add on its own, so they can do at most half as many.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12 / 2
 
 
 def log(msg):
@@ -287,106 +300,9 @@ def bitwise_diff(a, b):
     return n, err
 
 
-def tensor_bytes(*trees):
-    """Bytes of every tensor in (nested lists/tuples of) tensors."""
-    n = 0
-    for t in trees:
-        if isinstance(t, torch.Tensor):
-            n += t.numel() * t.element_size()
-        elif isinstance(t, (list, tuple)):
-            n += tensor_bytes(*t)
-    return n
-
-
-def stamp_blends(groups, obs):
-    """Number of (pixel, stamp) blends the groups' data needs: each live
-    slot blends over the part of its P x P patch inside the frame."""
-    n = 0
-    for bank, var, scale, r0, c0 in groups:
-        V, P = bank.shape[0], bank.shape[-1]
-        live = (scale != 0) & (var >= 0) & (var < V)
-
-        def span(x0):
-            x0 = x0.long().clamp(-P, obs)
-            return (x0 + P).clamp(max=obs) - x0.clamp(min=0)
-
-        n += int((live * span(r0).clamp(min=0) * span(c0).clamp(min=0)).sum())
-    return n
-
-
-def bound(nbytes, nops):
-    """Least time in ms the card could take: the larger of the bytes over
-    the memory rate and the f32 operations over the f32 peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-# 11 f32 ops per stamp blend (4 texel * scale, 1 - a, 3 multiplies, 3 adds),
-# 7 per tile blend (1 - a, 3 multiplies, 3 adds), 8 per summed stamp texel
-# (4 texel * scale, 4 adds)
-STAMP_OPS, TILE_OPS, SUM_OPS = 11, 7, 8
-
-
-def distinct(idx, valid, size):
-    """Number of distinct values in idx[valid], all in [0, size)."""
-    used = torch.zeros(size, dtype=torch.bool, device=idx.device)
-    used[idx[valid]] = True
-    return int(used.sum())
-
-
-def scene_work(args):
-    """(bytes, f32 operations) that one scene_raw call needs on these
-    inputs. Bytes: every element the kernel reads, counted once, and the
-    output written once. Of the grid and the background bank that is only
-    the cells under some env's camera window, of the tile bank only the
-    texels some tile blend reads; the per-env inputs, tr_tab and the stamp
-    groups whole (the banks are at most 0.2 MB in all). Operations: the
-    tile and stamp blends this data needs."""
-    (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
-     kinds, themes, groups, obs, qp, pad) = args
-    N, GP, _ = gridp.shape
-    NB, dev = bg_bank.shape[0], gridp.device
-    tr = tr_tab.reshape(qp, obs).long()
-    py, px = jy.long().clamp(0, qp - 1), jx.long().clamp(0, qp - 1)
-    ys = ty0.long()[:, None] + pad + tr[py]
-    xs = tx0.long()[:, None] + pad + tr[px]
-    inb = (((ys >= 0) & (ys < GP))[:, :, None]
-           & ((xs >= 0) & (xs < GP))[:, None, :])           # [N, obs, obs]
-    cell = (ys.clamp(0, GP - 1)[:, :, None] * GP
-            + xs.clamp(0, GP - 1)[:, None, :])
-    ncell = torch.arange(N, device=dev)[:, None, None] * GP * GP + cell
-    b = bg_i.long()[:, None, None]
-    bg_ok = inb & (b >= 0) & (b < NB)
-    grid_cells = distinct(ncell, inb, N * GP * GP)
-    bg_cells = distinct(b.clamp(0, NB - 1) * GP * GP + cell, bg_ok,
-                        NB * GP * GP)
-    G = torch.where(inb, gridp.reshape(-1)[ncell].long(), 0)
-    npix = obs * obs
-    tiles, texels = tile_work(G, py * qp + px, theme, npix, qp * qp, kinds,
-                              themes)
-    nbytes = (grid_cells * gridp.element_size()
-              + bg_cells * 3 * bg_bank.element_size()
-              + texels * 4 * tile_bank.element_size()
-              + tensor_bytes(ty0, tx0, jy, jx, bg_i, theme, tr_tab, groups)
-              + N * 3 * npix * 2)
-    return nbytes, TILE_OPS * tiles + STAMP_OPS * stamp_blends(groups, obs)
-
-
-def tile_work(G, ph, theme, npix, nph, kinds, themes):
-    """(tile blends, distinct tile-bank texels read) of the tile entries
-    over kind field G [N, obs, obs] at phases ph int [N] (in range)."""
-    N = G.shape[0]
-    texel = (ph.long()[:, None] * npix
-             + torch.arange(npix, device=G.device)).expand(N, npix)
-    tiles = texels = 0
-    for k, th in zip(kinds, themes):
-        m = G == int(k)
-        if th >= 0:
-            m = m & (theme == int(th))[:, None, None]
-        tiles += int(m.sum())
-        texels += distinct(texel, m.reshape(N, npix), nph * npix)
-    return tiles, texels
+# 8 f32 ops per summed stamp texel (4 texel * scale, 4 adds); the stamp
+# and tile blends' counts are the roofline copies' STAMP_OPS and TILE_OPS
+SUM_OPS = 8
 
 
 def field_work(args):
@@ -423,293 +339,7 @@ def stamp_bound(img, groups):
     """(bound_ms, bound_by) of one stamp-kernel call on these inputs: the
     frame and the groups read once (banks whole: at most 0.2 MB), the frame
     written once; the stamp blends this data needs."""
-    nbytes = tensor_bytes(img, groups) + img.numel() * img.element_size()
-    return bound(nbytes, STAMP_OPS * stamp_blends(groups, img.shape[-1]))
-
-
-def random_scene(n, dev, seed=0):
-    """Random scene-kernel inputs with coinrun's shapes, including grid
-    windows that leave the padded grid, out-of-range bg and var indices,
-    scale 0 and fractional scales, and stamps hanging off every edge."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=g, device=dev,
-                             dtype=torch.int32)
-
-    def rf(shape):
-        return torch.rand(shape, generator=g, device=dev)
-
-    ST = coinrun._scene_tensors(4, str(dev))
-    kinds, themes = ST["kinds"], ST["themes"]
-    ne, nb, gp, obs, qp, pad = len(kinds), 49, 96, 64, 4, 16
-    palette = torch.tensor([0] + list(kinds), dtype=torch.int8, device=dev)
-    gridp = palette[ri(0, len(palette), (n, gp, gp)).long()]
-    ty0, tx0 = ri(-pad - 8, 64 + 8, (n,)), ri(-pad - 8, 64 + 8, (n,))
-    jy, jx = ri(0, qp, (n,)), ri(0, qp, (n,))
-    bg_i, theme = ri(-1, nb + 1, (n,)), ri(0, 6, (n,))
-    bg_bank = ri(0, 256, (nb, 3, gp, gp)).to(torch.bfloat16)
-    a = rf((qp * qp, ne, 1, obs, obs))
-    tile_bank = torch.cat([rf((qp * qp, ne, 3, obs, obs)) * 255 * a, a],
-                          dim=2).to(torch.bfloat16)
-    groups = [random_group(g, n, dev, 39, 8, 17, obs),
-              random_group(g, n, dev, 40, 12, 1, obs)]
-    return (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, ST["tr_tab"],
-            tile_bank, kinds, themes, groups, obs, qp, pad)
-
-
-def random_group(g, n, dev, V, P, K, obs):
-    """A random stamp group: a premultiplied bf16 bank [V, 4, P, P]; var in
-    [-1, V] (both ends out of range); scales 0, 1, 0.5 and 0.3; r0/c0 in
-    [-P - 2, obs + 2] (stamps off and across every edge); where K > 1,
-    slot 1 overlaps slot 0, two pixels down and right."""
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=g, device=dev,
-                             dtype=torch.int32)
-
-    a = torch.rand((V, 1, P, P), generator=g, device=dev)
-    bank = torch.cat([torch.rand((V, 3, P, P), generator=g, device=dev)
-                      * 255 * a, a], dim=1).to(torch.bfloat16)
-    scales = torch.tensor([0.0, 1.0, 1.0, 1.0, 0.5, 0.3], device=dev)
-    r0, c0 = ri(-P - 2, obs + 3, (n, K)), ri(-P - 2, obs + 3, (n, K))
-    if K > 1:
-        r0[:, 1] = r0[:, 0] + 2
-        c0[:, 1] = c0[:, 0] + 2
-    return (bank, ri(-1, V + 1, (n, K)),
-            scales[ri(0, len(scales), (n, K)).long()].contiguous(), r0, c0)
-
-
-def bossfight_group_shapes():
-    """(V, P, K) of bossfight's four stamp groups, in painter order
-    (bossfight._stamp_groups)."""
-    banks = bossfight._stamp_banks()
-    ks = {"barbb": bossfight.MAX_BARRIERS + bossfight.BB_CULL,
-          "bosshield": 1, "dmg": bossfight.NUM_EXPLOSIONS,
-          "abship": bossfight.AB_CULL + 1}
-    return [(banks[k].shape[0], banks[k].shape[-1], K) for k, K in ks.items()]
-
-
-def random_stamps(n, dev, seed=0):
-    """Random stamp-kernel inputs: a bf16 frame [n, 3, 64, 64] of whole
-    values in [0, 255] and bossfight's four stamp groups (random_group)."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    img = torch.randint(0, 256, (n, 3, 64, 64), generator=g, device=dev,
-                        dtype=torch.int32).to(torch.bfloat16)
-    return img, [random_group(g, n, dev, V, P, K, 64)
-                 for V, P, K in bossfight_group_shapes()]
-
-
-EDGE_CASES = ("k300", "stacked", "p40")
-
-
-STACKED = ((5, 8, 48), (4, 12, 32))  # (V, P, K) of the "stacked" groups
-SUM_STACKED = ((5, 8, 80),)  # B4 takes one group: its 40 live slots
-
-
-def edge_groups(case, n, dev, seed=0, obs=64, stacked=STACKED):
-    """Stamp groups at the edges of the staged slot tables of the kernels
-    (csrc/stamps.cuh), with live slots at fractional scales so that the
-    order of their blends or sums shows:
-      * "k300": one group of K = 300 (P = 8): more slots than one staging
-        pass takes (256); slots 250-261 are live and stacked across the
-        pass boundary;
-      * "stacked": one group per (V, P, K) of `stacked` (by default two,
-        P = 8, K = 48 and P = 12, K = 32; SUM_STACKED is one group of
-        K = 80) whose even slots, 40 in all, are live and cover pixel
-        (29, 35); the odd slots between them are dead (scale 0, var -1,
-        var V, or off the frame);
-      * "p40": one group of P = 40 with a slot at every row offset from -P-1
-        to obs+1 and every column offset, shifted per env, so that P = 40
-        stamps start and end at every column of a lane's 8-pixel run and
-        at every row and column of a warp's 16 x 16 region."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=g, device=dev,
-                             dtype=torch.int32)
-
-    def fractions(shape):
-        return 0.25 + 0.75 * torch.rand(shape, generator=g, device=dev)
-
-    if case == "k300":
-        bank, var, scale, r0, c0 = random_group(g, n, dev, 6, 8, 300, obs)
-        stack = slice(250, 262)
-        var[:, stack] = ri(0, 6, (n, 12))
-        scale[:, stack] = fractions((n, 12))
-        r0[:, stack] = 20 + ri(-3, 4, (n, 12))
-        c0[:, stack] = 30 + ri(-3, 4, (n, 12))
-        return [(bank, var, scale, r0, c0)]
-    if case == "stacked":
-        groups = []
-        for V, P, K in stacked:
-            bank, var, scale, r0, c0 = random_group(g, n, dev, V, P, K, obs)
-            live = slice(0, K, 2)
-            var[:, live] = ri(0, V, (n, K // 2))
-            scale[:, live] = fractions((n, K // 2))
-            r0[:, live] = 29 - ri(0, P, (n, K // 2))
-            c0[:, live] = 35 - ri(0, P, (n, K // 2))
-            # dead slot kinds 0-3 in turn: scale 0, var -1, var V, a live
-            # slot placed below the frame
-            kind = ((torch.arange(K // 2, device=dev)[None]
-                     + torch.arange(n, device=dev)[:, None]) % 4)
-            scale[:, 1::2] = torch.where(kind == 0, 0.0, 1.0)
-            var[:, 1::2] = torch.where(kind == 1, -1, torch.where(
-                kind == 2, V, 0)).to(torch.int32)
-            r0[:, 1::2] = torch.where(kind == 3, obs, r0[:, 1::2]).to(torch.int32)
-            groups.append((bank, var, scale, r0, c0))
-        return groups
-    if case == "p40":
-        P, span = 40, obs + 40 + 3
-        bank, var, scale, r0, c0 = random_group(g, n, dev, 3, P, span, obs)
-        k = torch.arange(span, device=dev)[None]
-        e = torch.arange(n, device=dev)[:, None]
-        r0 = (-P - 1 + k).expand(n, span).to(torch.int32).contiguous()
-        c0 = (-P - 1 + (k * 37 + e * 13) % span).to(torch.int32)
-        scale = torch.where(scale == 0.0, fractions((n, span)), scale)
-        return [(bank, var, scale.contiguous(), r0, c0)]
-    raise ValueError(f"unknown edge case {case!r}")
-
-
-def edge_sum_group(case, n, dev, seed=0):
-    """B4's input for an edge case: the one group of edge_groups, for
-    "stacked" the one group of SUM_STACKED (40 live slots on pixel
-    (29, 35) in one group)."""
-    (group,) = edge_groups(case, n, dev, seed, stacked=SUM_STACKED)
-    return group
-
-
-def edge_stamps(case, n, dev, seed=0):
-    """B3's inputs for an edge case: a bf16 frame [n, 3, 64, 64] of whole
-    values in [0, 255] and the case's groups (edge_groups)."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed + 1000)
-    img = torch.randint(0, 256, (n, 3, 64, 64), generator=g, device=dev,
-                        dtype=torch.int32).to(torch.bfloat16)
-    return img, edge_groups(case, n, dev, seed)
-
-
-EDGE_THEMES = 6  # as coinrun's wall themes
-
-
-def edge_entries():
-    """Tile entries, themed and unthemed, for every theme: kinds 1 and 2
-    for each theme in turn, then unthemed kinds 1 (after the themed ones:
-    two blends in order on a kind-1 cell), 3, -5 (a negative int8 kind) and
-    0 (the kind of a cell outside the grid)."""
-    kinds, themes = [], []
-    for t in range(EDGE_THEMES):
-        kinds += [1, 2]
-        themes += [t, t]
-    return tuple(kinds + [1, 3, -5, 0]), tuple(themes + [-1, -1, -1, -1])
-
-
-def edge_scene(case, n, dev, seed=0):
-    """B1's inputs for an edge case: coinrun's shapes, the entries of
-    edge_entries on a grid of kinds 0, 1, 2, 3, -5 and 7 (7 matches no
-    entry), env themes in [-1, EDGE_THEMES] (both ends match no themed
-    entry), windows that leave the padded grid, backgrounds in range, and
-    the case's groups (edge_groups)."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed + 2000)
-
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=g, device=dev,
-                             dtype=torch.int32)
-
-    kinds, themes = edge_entries()
-    ne, nb, gp, obs, qp, pad = len(kinds), 3, 96, 64, 4, 16
-    palette = torch.tensor([0, 1, 2, 3, -5, 7], dtype=torch.int8, device=dev)
-    gridp = palette[ri(0, len(palette), (n, gp, gp)).long()]
-    ty0, tx0 = ri(-pad - 8, 64 + 8, (n,)), ri(-pad - 8, 64 + 8, (n,))
-    jy, jx = ri(0, qp, (n,)), ri(0, qp, (n,))
-    bg_i, theme = ri(0, nb, (n,)), ri(-1, EDGE_THEMES + 1, (n,))
-    bg_bank = ri(0, 256, (nb, 3, gp, gp)).to(torch.bfloat16)
-    a = torch.rand((qp * qp, ne, 1, obs, obs), generator=g, device=dev)
-    tile_bank = torch.cat([torch.rand((qp * qp, ne, 3, obs, obs), generator=g,
-                                      device=dev) * 255 * a, a],
-                          dim=2).to(torch.bfloat16)
-    tr_tab = coinrun._scene_tensors(qp, str(dev))["tr_tab"]
-    return (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
-            kinds, themes, edge_groups(case, n, dev, seed), obs, qp, pad)
-
-
-# kinds of edge_field's kind channel: integers in int8 (-0.0 among them),
-# fractions, integers beyond int8, infinities and a NaN
-ODD_KINDS = (0.0, -0.0, 1.0, 2.0, 3.0, -5.0, 7.0, -128.0, 127.0, 0.5, -0.5,
-             1.5, -2.25, 127.5, 128.0, -130.0, 200.0, 1000.0, float("inf"),
-             float("-inf"), float("nan"))
-BIG_KINDS = (128, -130, 1000)  # entry kinds beyond int8, unthemed
-
-
-def edge_field(n, dev, seed=0):
-    """B5's inputs at the edges of its kind lookup: the entries of
-    edge_entries, then unthemed entries of the kinds BIG_KINDS; a kind
-    channel of ODD_KINDS (as bf16); backgrounds of whole values in
-    [0, 255]; joint phases in [-1, NPH] and env themes in
-    [-1, EDGE_THEMES]; two random stamp groups (random_group)."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed + 3000)
-
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=g, device=dev,
-                             dtype=torch.int32)
-
-    kinds, themes = edge_entries()
-    kinds, themes = kinds + BIG_KINDS, themes + (-1,) * len(BIG_KINDS)
-    obs, nph, ne = 64, 4, len(kinds)
-    palette = torch.tensor(ODD_KINDS, device=dev)
-    X = torch.cat([palette[ri(0, len(ODD_KINDS), (n, 1, obs, obs)).long()],
-                   ri(0, 256, (n, 3, obs, obs)).float()],
-                  dim=1).to(torch.bfloat16)
-    a = torch.rand((nph, ne, 1, obs, obs), generator=g, device=dev)
-    tile_bank = torch.cat([torch.rand((nph, ne, 3, obs, obs), generator=g,
-                                      device=dev) * 255 * a, a],
-                          dim=2).to(torch.bfloat16)
-    groups = [random_group(g, n, dev, 6, 8, 5, obs),
-              random_group(g, n, dev, 4, 12, 2, obs)]
-    return (X, ri(-1, nph + 1, (n,)), ri(-1, EDGE_THEMES + 1, (n,)),
-            tile_bank, kinds, themes, groups, obs)
-
-
-SUM_GROUP_SHAPES = ((6, 8, 17), (5, 12, 9), (4, 20, 5))  # (V, P, K)
-
-
-def random_sum_groups(n, dev, seed=0):
-    """Random stamp-sum inputs: one group per (V, P, K) of
-    SUM_GROUP_SHAPES (random_group)."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    return [random_group(g, n, dev, V, P, K, 64) for V, P, K in SUM_GROUP_SHAPES]
-
-
-def random_field(n, dev, seed=0):
-    """Random inputs of `scene` (B5), shaped like the JAX package's
-    tests/test_scene_kernel.py::_random_scene: 5 tile entries (two themed),
-    a kind field of values 0..5 and a background of whole values in
-    [0, 255]; joint phases in [-1, NPH] (both ends out of range), themes 0
-    and 1; two stamp groups (random_group)."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=g, device=dev,
-                             dtype=torch.int32)
-
-    obs, nph, ne = 64, 16, 5
-    kinds, themes = tuple(range(1, ne + 1)), (-1, -1, 0, 1, -1)
-    X = torch.cat([ri(0, ne + 1, (n, 1, obs, obs)),
-                   ri(0, 256, (n, 3, obs, obs))], dim=1).to(torch.bfloat16)
-    a = torch.rand((nph, ne, 1, obs, obs), generator=g, device=dev)
-    tile_bank = torch.cat([torch.rand((nph, ne, 3, obs, obs), generator=g,
-                                      device=dev) * 255 * a, a],
-                          dim=2).to(torch.bfloat16)
-    groups = [random_group(g, n, dev, 6, 8, 5, obs),
-              random_group(g, n, dev, 4, 12, 2, obs)]
-    return (X, ri(-1, nph + 1, (n,)), ri(0, 2, (n,)), tile_bank, kinds,
-            themes, groups, obs)
+    return bound(*stamp_composite.work(img, groups))
 
 
 def vs_plain(what, kernel, plain, args, iters):
@@ -866,198 +496,6 @@ def stamps_vs_plain(img, groups, iters):
                              "differs from one launch per group")
     return vs_plain("stamp kernel", stamp_kernel.composite,
                     stamp_kernel.composite_reference, (img, groups), iters)
-
-
-def place_on_hazards(gs, n):
-    """Of the first n lanes of a coinrun State: lane 0 on its coin, the
-    first other lane with a live saw on that saw, the first other lane
-    with lava standing in it; their velocities zeroed. The lanes chosen
-    depend only on the first n lanes, so a state and its first n lanes on
-    another device get the same placement. Returns (state, lanes)."""
-    lv = gs.level
-    pos, vel = gs.pos.clone(), gs.vel.clone()
-    up = torch.tensor([0.0, 0.5], device=pos.device)
-    pos[0] = lv.coin_pos[0] + up
-    lanes = [0]
-    alive = lv.saw_alive[:n].cpu()
-    saws = [i for i in range(1, n) if bool(alive[i].any())]
-    if saws:
-        i = saws[0]
-        pos[i] = lv.saw_pos[i, int(alive[i].int().argmax())] + up
-        lanes.append(i)
-    lava_top = (lv.grid[:n] == coinrun.LAVA_TOP).cpu()
-    lava = [i for i in range(1, n) if i not in lanes and bool(lava_top[i].any())]
-    if lava:
-        i = lava[0]
-        ry, x = torch.nonzero(lava_top[i])[0].tolist()
-        pos[i] = torch.tensor([x + 0.5, ry + 1.0], device=pos.device)
-        lanes.append(i)
-    vel[lanes] = 0.0
-    return dataclasses.replace(gs, pos=pos, vel=vel), lanes
-
-
-def place_boss_deaths(gs):
-    """Of a bossfight State: lane 0's agent on its boss (contact: -10 on
-    the first sub-step), and lane 1's boss in its last phase (5) with no
-    hit points left and its damage show over, mid-phase so that no
-    phase-start re-roll restores them (+10 on the first sub-step).
-    Returns (state, lanes)."""
-    pos, phase_index = gs.pos.clone(), gs.phase_index.clone()
-    phase_timer, hp = gs.phase_timer.clone(), gs.hp.clone()
-    damage_timer = gs.damage_timer.clone()
-    pos[0] = gs.boss_pos[0]
-    phase_index[1], phase_timer[1], hp[1] = 5, 1.0, 0
-    damage_timer[1] = bossfight.DAMAGE_TIME
-    return dataclasses.replace(
-        gs, pos=pos, phase_index=phase_index, phase_timer=phase_timer, hp=hp,
-        damage_timer=damage_timer), [0, 1]
-
-
-def place_climber_lanes(gs, n):
-    """Of the first n lanes of a climber State: the first lane with a live
-    mob on that mob (its rect 0.3 below the mob's centre: contact, and no
-    crystal), the first other lane on its last crystal with every other
-    crystal taken (+1 + 10); their velocities zeroed. The lanes chosen
-    depend only on the first n lanes. Returns (state, lanes)."""
-    lv = gs.level
-    pos, vel, taken = gs.pos.clone(), gs.vel.clone(), gs.point_taken.clone()
-    alive = lv.mob_alive[:n].cpu()
-    mob = next(i for i in range(n) if bool(alive[i].any()))
-    pos[mob] = (gs.mob_pos[mob, int(alive[mob].int().argmax())]
-                + torch.tensor([0.0, 0.3], device=pos.device))
-    crys = next(i for i in range(n) if i != mob)
-    last = int(lv.point_exists[crys].sum()) - 1
-    taken[crys] = lv.point_exists[crys]
-    taken[crys, last] = False
-    pos[crys] = lv.point_pos[crys, last] + torch.tensor([0.0, 0.5],
-                                                        device=pos.device)
-    vel[[mob, crys]] = 0.0
-    return dataclasses.replace(gs, pos=pos, vel=vel, point_taken=taken), \
-        [mob, crys]
-
-
-def place_caveflyer_lanes(gs, n):
-    """Of the first n lanes of a caveflyer State: lane 0's ship on its
-    goal (+10), and the first other lane with a meteor, else a live
-    target, else an enemy ship, on that hazard (death, 0). Their
-    velocities are zeroed. The lanes chosen depend only on the first n
-    lanes. Raises ValueError if none of lanes 1..n-1 has a hazard (an
-    easy cave often has none; after a reset every existing target is
-    alive, so no state the game reaches has one to place). Returns
-    (state, lanes)."""
-    lv = gs.level
-    pos, vel = gs.pos.clone(), gs.vel.clone()
-    pos[0] = lv.goal_pos[0]
-    hazards = ((lv.obst_pos, lv.obst_exists), (lv.target_pos, gs.target_alive),
-               (gs.enemy_pos, lv.enemy_exists))
-    found = [(i, where[i, int(alive[i].int().argmax())])
-             for i in range(1, n) for where, alive in hazards
-             if bool(alive[i].any())]
-    if not found:
-        raise ValueError(f"no hazard in caveflyer lanes 1..{n - 1}")
-    lane, spot = found[0]
-    pos[lane] = spot
-    lanes = [0, lane]
-    vel[lanes] = 0.0
-    return dataclasses.replace(gs, pos=pos, vel=vel), lanes
-
-
-def place_jumper_lanes(gs, n):
-    """Of the first n lanes of a jumper State: lane 0's agent on its carrot
-    (half a unit below the goal's centre, so its rect lies in the goal
-    cell: +10), and the first other lane whose level has a spike, on that
-    spike ((x + 0.5, ry + 0.9) for the spike at render cell (ry, x): its
-    rect overlaps the spike's whatever the first action; death, 0), a
-    spike whose cell above is not the goal's. Velocities are zeroed. The
-    lanes chosen depend only on the first n lanes. Raises ValueError if
-    none of lanes 1..n-1 has such a spike. Returns (state, lanes)."""
-    lv = gs.level
-    pos, vel = gs.pos.clone(), gs.vel.clone()
-    pos[0] = lv.goal_pos[0] + torch.tensor([0.0, 0.5], device=pos.device)
-    spikes = lv.spike_grid[:n].cpu()
-    goal = lv.goal_pos[:n].cpu()
-    found = [(i, ry, x) for i in range(1, n)
-             for ry, x in torch.nonzero(spikes[i]).tolist()
-             if (x + 0.5, ry - 0.5) != tuple(goal[i].tolist())]
-    if not found:
-        raise ValueError(f"no spike in jumper lanes 1..{n - 1}")
-    lane, ry, x = found[0]
-    pos[lane] = torch.tensor([x + 0.5, ry + 0.9], device=pos.device)
-    lanes = [0, lane]
-    vel[lanes] = 0.0
-    return dataclasses.replace(gs, pos=pos, vel=vel), lanes
-
-
-def place_jumper_carrot(gs, n):
-    """Of a jumper State in `memory` mode, which has no spikes: lane 0's
-    agent on its carrot, as `place_jumper_lanes` places it. Returns
-    (state, lanes)."""
-    pos, vel = gs.pos.clone(), gs.vel.clone()
-    pos[0] = gs.level.goal_pos[0] + torch.tensor([0.0, 0.5], device=pos.device)
-    vel[0] = 0.0
-    return dataclasses.replace(gs, pos=pos, vel=vel), [0]
-
-
-def place_chaser_lanes(gs):
-    """Of a chaser State: lane 0 with every pellet eaten and every orb
-    taken (nothing left: +10, done) and lane 1 with its first enemy
-    hatched on the agent while nothing is eaten (death, 0). Both take a
-    first action that does not move (`hold_first_action`), so lane 1
-    collects nothing as it dies. Returns (state, lanes)."""
-    points, orbs = gs.point_grid.clone(), gs.orb_taken.clone()
-    points[0] = False
-    orbs[0] = True
-    mob_pos, hatch = gs.mob_pos.clone(), gs.hatch_timer.clone()
-    eat = gs.eat_timer.clone()
-    mob_pos[1, 0] = gs.pos[1]
-    hatch[1, 0] = chaser.HATCH_TIME
-    eat[1] = 0.0
-    return dataclasses.replace(gs, point_grid=points, orb_taken=orbs,
-                               mob_pos=mob_pos, hatch_timer=hatch,
-                               eat_timer=eat), [0, 1]
-
-
-def place_maze_lanes(gs, cfg):
-    """Of a maze State: lane 0's agent on its goal (+10 with a first
-    action that does not move, `hold_first_action`) and lane 1 at its
-    last step before the timeout (terminated with 0: its start is never
-    the goal). Returns (state, lanes)."""
-    pos, t = gs.pos.clone(), gs.t.clone()
-    pos[0] = gs.level.goal_pos[0]
-    t[1] = cfg.timeout - 1
-    return dataclasses.replace(gs, pos=pos, t=t), [0, 1]
-
-
-def hold_first_action(actions, lanes):
-    """`actions` [T, N] with the placed lanes' first action 4 (no move)."""
-    actions = actions.clone()
-    actions[0, lanes] = 4
-    return actions
-
-
-FEATURES_OFF = {"allow_pit": False, "allow_crate": False, "allow_dy": False,
-                "allow_mobs": False}
-# The main paths at configs other than the default: the Procgen
-# benchmark's hard distribution, memory, easy_mode and coinrun with its
-# level features off. label -> (game, config, lane placement, kernel
-# launches in one T-step replay). tests/mode_parity.py holds the same
-# runs, placement included, against the JAX package on the CPU.
-MODE_CASES = {
-    "caveflyer hard": ("caveflyer", {"mode": "hard"}, place_caveflyer_lanes,
-                       {"scene_raw_kernel": T}),
-    "caveflyer memory": ("caveflyer", {"mode": "memory"},
-                         place_caveflyer_lanes, {"scene_raw_kernel": T}),
-    "jumper hard": ("jumper", {"mode": "hard"}, place_jumper_lanes,
-                    {"scene_raw_kernel": T, "stamp_composite_kernel": T}),
-    "jumper memory": ("jumper", {"mode": "memory"}, place_jumper_carrot,
-                      {"scene_raw_kernel": T, "stamp_composite_kernel": T}),
-    "climber easy": ("climber", {"easy_mode": True}, place_climber_lanes,
-                     {"scene_raw_kernel": T}),
-    "coinrun easy": ("coinrun", {"easy_mode": True}, place_on_hazards,
-                     {"scene_raw_kernel": T}),
-    "coinrun features off": ("coinrun", FEATURES_OFF, place_on_hazards,
-                             {"scene_raw_kernel": T}),
-}
 
 
 def wall_ms(fn, iters=5):
@@ -2317,28 +1755,6 @@ def rollout_path(name, cfg, kernels, n_levels=NUM_LEVELS, n_envs=NUM_ENVS,
     return out
 
 
-def bench_phase():
-    """`bench_cli.bench_game` for every game at its default Config (4096
-    envs, 1024 levels, T = 8, 3 timed rollouts) and the headline
-    `procgen2_tpu_torch.bench` (maze easy, 2048 levels, 8192 envs): each
-    record printed as JSON. Returns the records."""
-    import gc
-
-    from procgen2_tpu_torch import bench
-    from procgen2_tpu_torch.tools import bench_cli
-
-    records = []
-    for name in pt.GAMES:
-        r = bench_cli.bench_game(name, num_envs=NUM_ENVS,
-                                 num_levels=NUM_LEVELS, T=T, iters=3)
-        log("bench_cli " + json.dumps(r))
-        records.append(r)
-        gc.collect()
-    line = bench.main(num_envs=MAZE_ENVS, num_levels=MAZE_LEVELS, iters=3)
-    gc.collect()
-    return records, line
-
-
 def gym_check(steps=20):
     """`GymEnv("maze")` on the card against the same on the CPU, the same
     seed: the reset's and every step's obs, reward, termination and
@@ -2753,7 +2169,7 @@ def module_phase(n_envs=256, steps=45):
 
 # ---- the reference's own levels at full width (tools/reference_levels) ----
 
-# The parity suites' runs (tests/test_torch_parity_scripted.py), on the
+# The parity suites' runs (tests/test_torch_parity.py), on the
 # card: game -> (config, its test's seeds, how it acts ("bot": the game's
 # closed-loop bot, one step per replay; else the name of an open-loop
 # plan, replayed T steps at a time), step cap, envs, the kernels one
@@ -3080,41 +2496,6 @@ OVERLAY_STEPS = 2
 PNG_ROUTE = "png_assets.install (Pillow decodes the synthetic tree)"
 
 
-def random_rgba(rng, h, w):
-    """Random RGBA u8 [h, w, 4] from numpy Generator `rng`: fractional
-    alpha, a quarter of the texels fully clear and a quarter opaque."""
-    img = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
-    r = rng.random((h, w))
-    img[..., 3][r < 0.25] = 0
-    img[..., 3][r > 0.75] = 255
-    return img
-
-
-def synthetic_assets(root, seed=13):
-    """Write a synthetic reference assets/ tree under `root`: every path
-    of png_assets.default_mapping() and BACKGROUND_PATHS as seeded
-    `random_rgba`; sprites 12-70 px on a side, backgrounds wider or
-    taller than square (they are square-cropped on install)."""
-    from PIL import Image
-
-    from procgen2_tpu_torch.render import png_assets
-
-    rng = np.random.default_rng(seed)
-
-    def save(rel, img):
-        p = pathlib.Path(root) / rel
-        p.parent.mkdir(parents=True, exist_ok=True)
-        Image.fromarray(img, "RGBA").save(p)
-
-    for rel in sorted(set(png_assets.default_mapping().values())):
-        save(rel, random_rgba(rng, *rng.integers(12, 71, 2)))
-    for rels in png_assets.BACKGROUND_PATHS.values():
-        for rel in rels:
-            h = int(rng.integers(40, 120))
-            w = int(h * rng.choice([0.6, 1.5, 2.0]))
-            save(rel, random_rgba(rng, h, w))
-
-
 def overlay_case(name):
     """(game, cfg, levels, envs) of `name`'s main path."""
     if name == "maze":
@@ -3225,48 +2606,6 @@ def overlay_game(name, r):
                   f"{b:.4f} ms ({by})"
                   for k, (err, ms, plain, b, by) in kern.items()))
     return dict(state=state, launches=launches, kernels=kern, wall_s=wall)
-
-
-def coinrun_bot_actions(seed, max_steps=300):
-    """The coinrun bot's closed-loop run to the coin on the reference's
-    level `seed`, started as a fixture replay starts it, on the CPU; then
-    3 NOOPs into the next episode."""
-    from procgen2_tpu_torch.tools.bots import NOOP, CoinrunBot
-    from procgen2_tpu_torch.tools.reference_levels import (host_level,
-                                                           reference_bank)
-
-    env = pt.make("coinrun", device="cpu")
-    bank = reference_bank("coinrun", [seed], "cpu")
-    state, _ = env.reset(bank, pt.random.fold_in(pt.random.key(seed), 0), 1)
-    bot = CoinrunBot(host_level(bank, 0))
-    actions = []
-    for _ in range(max_steps):
-        gs = state.game
-        a = int(bot.act(gs.pos[0].numpy(), gs.vel[0].numpy(),
-                        gs.on_ground[0].numpy()))
-        actions.append(a)
-        state, ts = env.step_raw(state, torch.tensor([a], dtype=torch.int32),
-                                 render=False)
-        if bool(ts.terminated[0]):
-            return actions + [NOOP] * 3
-    raise AssertionError(f"coinrun seed {seed}: the bot did not finish")
-
-
-def maze_route_actions(seed):
-    """The BFS route to the goal of the reference's maze level `seed`
-    (easy), then 4 NOOPs into the next episode."""
-    from procgen2_tpu_torch.tools.bots import NOOP
-    from procgen2_tpu_torch.tools.reference_levels import (host_level,
-                                                           reference_bank)
-    from procgen2_tpu_torch.tools.rng_oracle import reference_maze_layout
-    from procgen2_tpu_torch.tools.scripted import bfs_actions
-
-    grid = host_level(reference_bank("maze", [seed], "cpu", mode="easy"),
-                      0).grid
-    lay = reference_maze_layout(seed, "easy")
-    m = lay["margin"]
-    gi, gj = lay["goal"]
-    return bfs_actions(grid, (14 - m, m), (14 - (gj + m), gi + m)) + [NOOP] * 4
 
 
 def fixtures_across_devices():
@@ -3491,8 +2830,6 @@ def main():
     gc.collect()
     # ---- 25. make(module): the example wave game ----
     module_phase()
-    # ---- 26. the bench: bench_cli per game, the headline line ----
-    bench_phase()
     # ---- 27. the Gym adapter, a checkpoint, the guards ----
     surface_phase()
     # ---- 28. the reference's own levels at full width ----

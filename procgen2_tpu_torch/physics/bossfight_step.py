@@ -17,7 +17,7 @@ import functools
 
 import torch
 
-from .coinrun_step import check_tensor
+from ..render._build import check_tensor
 
 NUM_A_BULLETS, NUM_B_BULLETS, NUM_EXPLOSIONS = 32, 64, 8  # the kernel's rings
 MAX_BARRIERS = 4

@@ -18,6 +18,8 @@ import functools
 
 import torch
 
+from ..render._build import check_tensor
+
 MAX_SLOTS = 64  # kMaxSlots in csrc/coinrun_step.cu: two slots per lane
 LUT_IDS = 16  # tiles::kLutIds: a packed LUT holds tile ids 0..15
 
@@ -60,17 +62,6 @@ def build():
     """Build (or find) and load the kernel; returns the build record
     (seconds, compiler output). Needs nvcc."""
     return _kernel()[1]
-
-
-def check_tensor(t, dtype, shape, device, name):
-    """Raise ValueError unless t has this dtype, shape and device."""
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
 def step(grid, pos, vel, on_ground, face_forward, anim_t, mob_pos, mob_vx,

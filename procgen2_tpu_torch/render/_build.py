@@ -6,6 +6,8 @@ Each `csrc/*.cu` file has a plain C entry point. It is compiled with
 every local header it includes and of the flags, and loaded with ctypes:
 no PyTorch headers are compiled, so a build takes seconds. Nothing here runs at import time, and a failed build
 raises with the compiler's output.
+
+`check_tensor` is the launch wrappers' shared check of their arguments.
 """
 from __future__ import annotations
 
@@ -83,3 +85,14 @@ def load(name: str):
                                f"{record['log']}")
         os.replace(tmp, lib_path)
     return ctypes.CDLL(str(lib_path)), record
+
+
+def check_tensor(t, dtype, shape, device, name):
+    """Raise ValueError unless t has this dtype, shape and device."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")

@@ -32,7 +32,9 @@ def bench_game(game: str, num_envs: int = 4096, num_levels: int = 1024,
                T: int = 8, iters: int = 20, profile_dir: str | None = None,
                device="cuda", **config) -> dict:
     """env-steps/s of `iters` rollouts of T steps (after one that
-    captures the graph), and levels/s of a second `generate_bank`."""
+    captures the graph), and levels/s of a second `generate_bank`. A
+    quick reading per game: the judged numbers of the port are the
+    benchmark's cells (`benchmark/`, BENCHMARK.json)."""
     from .. import make
     from .. import random as prng
     from ..dist import rollout

@@ -1,7 +1,7 @@
 """Independent per-step reward/termination predictors (second implementations)
 (procgen2_tpu/tools/predict.py, the port's own copy).
 
-The scripted parity suites (tests/test_torch_parity_scripted.py) compare
+The scripted parity suites (tests/test_torch_parity.py) compare
 the port's engines against these scalar numpy re-derivations of the reference's
 step loops — `games/coinrun/coinrun.cpp:341-391`,
 `games/jumper/jumper.cpp:341-375`,

@@ -6,13 +6,14 @@ actions, every step's state, reward, termination, truncation, info and
 `observe_batch` frame.
 
 Both Environments start from the same keys. After the reset the lanes
-are placed as chip_smoke.py places them on the card (`MODE_CASES`): a
+are placed as chip_smoke.py places them on the card (game_lanes.MODE_CASES): a
 goal lane and, where the level has one, a hazard lane, which end their
 episodes on the first step, so the auto-reset's draw from the bank is
 held too. The JAX render runs on its TPU path: the scene kernel
 (`scene_tpu_raw`) and the stamp kernel (`composite_tpu`) in interpret
 mode, which B1 and B3 replace."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,28 +21,14 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-import procgen2_tpu as pg
+import game_lanes
+import jax_reference as JR
 import procgen2_tpu_torch as pt
-from procgen2_tpu.render import compositor as jC
-from procgen2_tpu.render import scene_kernel as jsk
-from procgen2_tpu.render import stamp_kernel as jstk
 from procgen2_tpu_torch.utils import convert
 from render_parity import games, np_tree
 from torch_parity import same, same_tree
 
 N, NUM_LEVELS, T = 8, 8, 8
-
-
-def tpu_kernels(mp):
-    """The JAX render on its TPU path, the kernels in interpret mode (a
-    `pytest.MonkeyPatch` mp)."""
-    scene, composite = jsk.scene_tpu_raw, jstk.composite_tpu
-    mp.setattr(jC, "_use_stamp_kernel", lambda: True)
-    mp.setattr(jsk, "scene_tpu_raw",
-               lambda *a, **k: scene(*a, **{**k, "interpret": True}))
-    mp.setattr(jstk, "composite_tpu",
-               lambda *a, **k: composite(*a, **{**k, "interpret": True}))
 
 
 def _placed(name, place, start):
@@ -63,29 +50,31 @@ def _to_jax(st):
         rng=wrap(st.rng), game=st.game.replace(rng=wrap(st.game.rng))))
 
 
+@functools.lru_cache(maxsize=None)
 def env_run(label):
-    """Both Environments of chip_smoke.MODE_CASES[label] from the same
+    """Both Environments of game_lanes.MODE_CASES[label] from the same
     keys: bank of NUM_LEVELS, reset of N envs, the lanes placed as on the
-    card, T steps under the same random actions, each rendered."""
-    name, kw, place, _ = chip_smoke.MODE_CASES[label]
-    with pytest.MonkeyPatch.context() as mp:
-        tpu_kernels(mp)
-        jenv, tenv = pg.make(name, **kw), pt.make(name, device="cpu", **kw)
-        jbank = jenv.generate_bank(jax.random.key(7), num_levels=NUM_LEVELS)
-        tbank = tenv.generate_bank(pt.random.key(7), NUM_LEVELS)
-        jst, jts = jenv.reset(jbank, jax.random.key(8), num_envs=N)
-        tst, tts = tenv.reset(tbank, pt.random.key(8), N)
-        reset = (np_tree(jst), np.asarray(jts.obs), tst, tts)
-        start, lanes = _placed(name, place, np_tree(jst))
-        jst = _to_jax(start)
-        tst = convert.env_state(tenv.game, start, "cpu")
-        actions = np.random.default_rng(3).integers(0, 15, (T, N)).astype(
-            np.int32)
-        steps = []
-        for t in range(T):
-            jst, jts = jenv.step(jbank, jst, jnp.asarray(actions[t]))
-            tst, tts = tenv.step(tbank, tst, torch.from_numpy(actions[t]))
-            steps.append((np_tree(jst), np_tree(jts), tst, tts))
+    card, T steps under the same random actions, each rendered. One run
+    per label and process, whichever module's fixture asks first."""
+    name, kw, place, _ = game_lanes.MODE_CASES[label]
+    kw = tuple(sorted(kw.items()))
+    jenv, tenv = JR.env(name, kw, tpu=True), pt.make(name, device="cpu",
+                                                      **dict(kw))
+    jbank = JR.bank(name, kw, seed=7, n=NUM_LEVELS)
+    tbank = tenv.generate_bank(pt.random.key(7), NUM_LEVELS)
+    jst, jts = jenv.reset(jbank, jax.random.key(8), num_envs=N)
+    tst, tts = tenv.reset(tbank, pt.random.key(8), N)
+    reset = (np_tree(jst), np.asarray(jts.obs), tst, tts)
+    start, lanes = _placed(name, place, np_tree(jst))
+    jst = _to_jax(start)
+    tst = convert.env_state(tenv.game, start, "cpu")
+    actions = np.random.default_rng(3).integers(0, 15, (T, N)).astype(
+        np.int32)
+    steps = []
+    for t in range(T):
+        jst, jts = jenv.step(jbank, jst, jnp.asarray(actions[t]))
+        tst, tts = tenv.step(tbank, tst, torch.from_numpy(actions[t]))
+        steps.append((np_tree(jst), np_tree(jts), tst, tts))
     return dict(jbank=np_tree(jbank), tbank=tbank, reset=reset, steps=steps,
                 lanes=lanes)
 

@@ -8,7 +8,6 @@ The states come from a short random rollout of the JAX package's
 Environment (`rollout`), carried across with `utils.convert`. The JAX
 `observe` is jitted on one env, as `Environment.render` runs it, under
 `compositor.resolution(size)`."""
-import contextlib
 import dataclasses
 import functools
 import importlib
@@ -19,10 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-import procgen2_tpu as pg
+import jax_reference as JR
 from jax_capture import onehot_inputs
+from jax_reference import np_tree
 from procgen2_tpu.render import compositor as jC
-from procgen2_tpu.render import stamp_kernel as jsk
 from procgen2_tpu_torch import make
 from procgen2_tpu_torch.render import compositor as tC
 from procgen2_tpu_torch.utils import convert
@@ -35,48 +34,20 @@ def games(name):
             importlib.import_module(f"procgen2_tpu_torch.games.{name}"))
 
 
-def np_tree(tree):
-    return jax.tree.map(
-        lambda a: (np.asarray(jax.random.key_data(a))
-                   if jnp.issubdtype(a.dtype, jax.dtypes.prng_key)
-                   else np.asarray(a)), tree)
-
-
 @functools.lru_cache(maxsize=None)
 def rollout(name, kw=(), n=8, steps=24, fire=0.0, seed=3):
     """(JAX EnvState, its numpy tree) after `steps` random actions of n
     envs on an 8-level bank; a share `fire` of the actions fires. The
-    reset's frames are not kept: they render on the JAX CPU path, whatever
-    a test module has patched."""
-    env = pg.make(name, **dict(kw))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jC, "_use_stamp_kernel", lambda: False)
-        bank = env.generate_bank(jax.random.key(seed), num_levels=8)
-        state, _ = env.reset(bank, jax.random.key(seed + 1), num_envs=n)
-        rng = np.random.default_rng(seed)
-        step = jax.jit(functools.partial(env.step, render=False))
-        for _ in range(steps):
-            a = np.where(rng.random(n) < fire, FIRE, rng.integers(0, 15, n))
-            state, _ = step(bank, state, jnp.asarray(a, jnp.int32))
+    reset's frames are not kept: they render on the JAX CPU path."""
+    env = JR.env(name, kw)
+    bank = env.generate_bank(jax.random.key(seed), num_levels=8)
+    state, _ = env.reset(bank, jax.random.key(seed + 1), num_envs=n)
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        a = np.where(rng.random(n) < fire, FIRE, rng.integers(0, 15, n))
+        state, _ = env.step(bank, state, jnp.asarray(a, jnp.int32),
+                            render=False)
     return state, np_tree(state)
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_observe(name, kw, size):
-    """The JAX package's single-env observe, jitted at `size`."""
-    jg, _ = games(name)
-    f = jax.jit(functools.partial(jg.observe, jg.Config(**dict(kw))))
-    return f
-
-
-def jax_observe(name, kw, state, size):
-    """uint8 [N, size, size, 3]: the JAX observe of every env of the JAX
-    game state, one env at a time."""
-    f = _jax_observe(name, kw, size)
-    n = jax.tree.leaves(state)[0].shape[0]
-    with jC.resolution(size):
-        return np.stack([np.asarray(f(jax.tree.map(lambda x: x[i], state)))
-                         for i in range(n)])
 
 
 def port_state(name, np_state):
@@ -88,23 +59,20 @@ def check_observe(name, kw=(), size=64, **roll):
     bit for bit. Returns the numpy state for coverage checks."""
     jst, nst = rollout(name, kw, **roll)
     _, tg = games(name)
-    want = jax_observe(name, kw, jst.game, size)
+    want = JR.observe_each(name, kw, jst.game, size)
     got = tg.observe(tg.Config(**dict(kw)), port_state(name, nst), size)
     assert got.dtype == torch.uint8 and got.shape == want.shape
     np.testing.assert_array_equal(want, got.numpy())
     return nst
 
 
-@contextlib.contextmanager
-def tpu_stamp_semantics():
-    """The JAX package's stamp groups as on the TPU: its stamp kernel
-    wherever `_stamp_kernel_ok` holds, run in interpret mode."""
-    orig = jsk.composite_tpu
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jC, "_use_stamp_kernel", lambda: True)
-        mp.setattr(jsk, "composite_tpu",
-                   lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-        yield
+@functools.lru_cache(maxsize=None)
+def exact_frames(name, kw, **roll):
+    """The JAX package's `observe_batch` of `rollout(name, kw, **roll)` on
+    its TPU stamp path: computed once per process for every test that
+    holds the port's exact render against it."""
+    jst, _ = rollout(name, kw, **roll)
+    return np.asarray(JR.observe_batch(name, kw)(jst.game))
 
 
 def check_exact(name, kw=(), **roll):
@@ -113,9 +81,7 @@ def check_exact(name, kw=(), **roll):
     kw = tuple(sorted(dict(kw, scene_phases=0).items()))
     jst, nst = rollout(name, kw, **roll)
     jg, tg = games(name)
-    with tpu_stamp_semantics():
-        want = np.asarray(jax.jit(functools.partial(
-            jg.observe_batch, jg.Config(**dict(kw))))(jst.game))
+    want = exact_frames(name, kw, **roll)
     got = tg.observe_batch(tg.Config(**dict(kw)), port_state(name, nst))
     assert got.dtype == torch.uint8 and got.shape == want.shape
     np.testing.assert_array_equal(want, got.numpy())
@@ -126,7 +92,7 @@ def check_render(name, kw=(), env_index=0, size=128, **roll):
     """`Environment.render` of the port equals the JAX package's, for
     both obs formats."""
     jst, nst = rollout(name, kw, **roll)
-    want = np.asarray(pg.make(name, **dict(kw)).render(jst, size, env_index))
+    want = np.asarray(JR.env(name, kw).render(jst, size, env_index))
     for fmt in ("hwc", "chw"):
         env = make(name, device="cpu", obs_format=fmt, **dict(kw))
         got = env.render(convert.env_state(env.game, nst, "cpu"), size,
@@ -237,7 +203,7 @@ def check_exact_selectors(name, kw=(), **roll):
     jg, tg = games(name)
     port = port_selectors(tg.observe_batch, tg.Config(**dict(kw)),
                           port_state(name, nst))
-    with tpu_stamp_semantics():
+    with JR.tpu_kernels():
         calls = onehot_inputs(functools.partial(
             jg.observe_batch, jg.Config(**dict(kw))), jst.game)
     n = jax.tree.leaves(jst.game)[0].shape[0]
@@ -274,16 +240,13 @@ def check_near_edges(name, camdy, ppu, size=64, exact=False, reps=24):
     """The port's observe (or, `exact`, its scene_phases=0 render) equal
     to the JAX package's on `near_edges` states, every batch."""
     kw = (("scene_phases", 0),) if exact else ()
-    jg, tg = games(name)
-    if exact:
-        f = jax.jit(functools.partial(jg.observe_batch, jg.Config(**dict(kw))))
+    _, tg = games(name)
     for jgame, game in near_edges(name, kw, camdy, ppu, size, reps):
         st = convert.state(tg, game, "cpu")
         if exact:
-            with tpu_stamp_semantics():
-                want = np.asarray(f(jgame))
+            want = np.asarray(JR.observe_batch(name, kw)(jgame))
             got = tg.observe_batch(tg.Config(**dict(kw)), st)
         else:
-            want = jax_observe(name, kw, jgame, size)
+            want = JR.observe_each(name, kw, jgame, size)
             got = tg.observe(tg.Config(), st, size)
         np.testing.assert_array_equal(want, got.numpy())

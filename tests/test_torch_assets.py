@@ -25,6 +25,9 @@ from procgen2_tpu_torch.games import jumper as tjump
 from procgen2_tpu_torch.games import maze as tmaze
 from procgen2_tpu_torch.render import atlas as tatlas
 from procgen2_tpu_torch.render import phases as tphases
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def same(want, got, what):

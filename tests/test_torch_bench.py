@@ -1,10 +1,13 @@
-"""The port's bench (procgen2_tpu_torch/tools/bench_cli.py and
-procgen2_tpu_torch/bench.py) runs on the CPU at a tiny size and reports
-the JAX package's fields."""
+"""The port's bench (procgen2_tpu_torch/tools/bench_cli.py) runs on the
+CPU at a tiny size and reports the JAX package's fields."""
 import json
 
-import procgen2_tpu_torch.bench as headline
+import pytest
+
 from procgen2_tpu_torch.tools import bench_cli
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_bench_game_smoke():
@@ -26,11 +29,3 @@ def test_bench_cli_writes_its_record(tmp_path, capsys):
     assert doc["games"] == [line] and doc["hardware"] == "cpu"
     assert (tmp_path / "trace" / "maze.json").exists()
 
-
-def test_headline_line(capsys):
-    line = headline.main(num_envs=4, num_levels=4, iters=1, device="cpu")
-    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert printed == line
-    assert line["metric"] == "maze_env_steps_per_s_per_chip_rendered_obs"
-    assert line["unit"] == "env-steps/s/chip" and line["vs_baseline"] is None
-    assert line["value"] > 0

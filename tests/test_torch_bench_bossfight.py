@@ -12,6 +12,7 @@ import dataclasses
 import json
 
 import numpy as np
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -25,7 +26,10 @@ from procgen2_tpu_torch.dist import make_vec, rollout
 from procgen2_tpu_torch.games import bossfight as bf
 
 import bossfight_lanes as lanes
-import chip_smoke
+import game_lanes
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, LEVELS, CALLS, T = 8, 12, 3, 8
 FIELDS = ("obs", "actions", "rewards", "dones", "ep_returns", "ep_lengths")
@@ -61,7 +65,7 @@ def test_reference_equals_the_port():
     assert torch.equal(obs, ref_obs)
 
     def craft(gs):
-        return lanes.crowd(chip_smoke.place_boss_deaths(gs)[0], [2, 3])
+        return lanes.crowd(game_lanes.place_boss_deaths(gs)[0], [2, 3])
 
     state, ref_state = _with_game(state, craft), _with_game(ref_state, craft)
     rows = torch.arange(N)

@@ -25,7 +25,6 @@ cos/sin rounded once, of the stored rotation, give velocities that differ
 from the JAX package's by up to about 8 ulp of the speed
 (test_volley_velocities_differ_within_budget).
 """
-import dataclasses
 import functools
 
 import jax
@@ -34,48 +33,23 @@ import numpy as np
 import pytest
 import torch
 
-import procgen2_tpu as pg
+import jax_reference as JR
 import procgen2_tpu_torch as pt
 from procgen2_tpu.games import bossfight as jb
-from procgen2_tpu.render import compositor as jC
-from procgen2_tpu.render import stamp_kernel as jsk
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import bossfight as tb
 from procgen2_tpu_torch.utils import convert
 import render_parity as RP
+from bossfight_parity import (LEVEL_FIELDS, N, STATE_FIELDS, actions,
+                              np_tree, same, start_state, to_jax)
+import texel_edges
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
-NUM_LEVELS, N, T_LOCAL, T_FREE = 1024, 8, 40, 60
-LEVEL_FIELDS = [f.name for f in dataclasses.fields(tb.Level)]
-STATE_FIELDS = [f.name for f in dataclasses.fields(tb.State)
-                if f.name != "level"]
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+NUM_LEVELS, T_LOCAL, T_FREE = 1024, 40, 60
 # the most float64 cos/sin rounded once move a volley velocity
 VEL_BUDGET = tb.Config().bullet_speed * 2.0 ** -19
-
-
-def np_tree(tree):
-    return jax.tree.map(
-        lambda a: (np.asarray(jax.random.key_data(a))
-                   if jnp.issubdtype(a.dtype, jax.dtypes.prng_key)
-                   else np.asarray(a)), tree)
-
-
-def to_jax(st):
-    return jax.tree.map(jnp.asarray,
-                        st.replace(rng=jax.random.wrap_key_data(st.rng)))
-
-
-def same(want, got, what=""):
-    want = np.asarray(want)
-    got = got.numpy()
-    if want.dtype == np.uint32:
-        want = want.astype(np.int64)
-    assert want.shape == got.shape and want.dtype == got.dtype, (
-        what, want.shape, want.dtype, got.shape, got.dtype)
-    if want.dtype == np.float32:
-        np.testing.assert_array_equal(want.view(np.int32), got.view(np.int32),
-                                      err_msg=what)
-    else:
-        np.testing.assert_array_equal(want, got, err_msg=what)
 
 
 def close(want, got, budget):
@@ -87,7 +61,7 @@ def close(want, got, budget):
 def banks():
     keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(7), i))(
         jnp.arange(NUM_LEVELS, dtype=jnp.uint32))
-    jl = jax.jit(jax.vmap(functools.partial(jb.generate, jb.Config())))(keys)
+    jl = JR.vmapped("bossfight", "generate")(keys)
     tl = tb.generate(tb.Config(), R.fold_in(R.key(7), torch.arange(NUM_LEVELS)))
     return np_tree(jl), tl
 
@@ -119,37 +93,11 @@ def test_reset_matches(banks):
         same(getattr(want, f), getattr(got, f), f)
 
 
-def start_state(bank):
-    """Reset states on the bank's first N levels, weapons 0-3 over the
-    lanes, and: lane 1 two steps before its shielded phase ends; lane 2
-    unshielded with one hit point left (player bullets damage it, it
-    explodes and advances); lane 3 in the last phase with one hit point
-    left. numpy State."""
-    lv = jax.tree.map(lambda a: jnp.asarray(a[:N]), bank)
-    st = np_tree(jax.vmap(functools.partial(jb.reset, jb.Config()))(
-        lv, jax.random.split(jax.random.key(8), N)))
-    phase_timer = np.full(N, 1.0, np.float32)
-    phase_index = np.zeros(N, np.int32)
-    hp = np.full(N, jb.BOSS_HP, np.int32)
-    phase_timer[1] = 178.0
-    phase_index[2], phase_timer[2], hp[2] = 1, 5.0, 1
-    phase_index[3], phase_timer[3], hp[3] = 5, 5.0, 1
-    return st.replace(phase_timer=phase_timer, phase_index=phase_index, hp=hp,
-                      weapon_index=np.arange(N, dtype=np.int32) % 4)
-
-
-def actions(T, seed=1):
-    """Fire half the time, else move (left, right, up, down) or stand."""
-    rng = np.random.default_rng(seed)
-    return np.where(rng.random((T, N)) < 0.5, 9,
-                    rng.choice([1, 7, 5, 3, 4], (T, N))).astype(np.int32)
-
-
 @pytest.fixture(scope="module")
 def local(banks):
     """Step-local pairs: (JAX state before, JAX result, port result) for
     each of T_LOCAL steps of a JAX rollout."""
-    jstep = jax.jit(jax.vmap(functools.partial(jb.step, jb.Config())))
+    jstep = JR.vmapped("bossfight", "step")
     jst = to_jax(start_state(banks[0]))
     acts = actions(T_LOCAL)
     out = []
@@ -219,7 +167,7 @@ def test_volley_velocities_differ_within_budget(local):
 def test_free_running_rollout(banks):
     """T_FREE steps, each side from its own state: every field, reward and
     termination exact at every step."""
-    jstep = jax.jit(jax.vmap(functools.partial(jb.step, jb.Config())))
+    jstep = JR.vmapped("bossfight", "step")
     st = start_state(banks[0])
     jst, tst = to_jax(st), convert.state(tb, st, "cpu")
     acts = actions(T_FREE, seed=2)
@@ -271,24 +219,14 @@ def test_cull_keeps_top_k_order_on_ties():
         same(w, g)
 
 
-@pytest.fixture
-def jax_stamp_kernel(monkeypatch):
-    """The JAX package's render on its TPU path: the stamp kernel, run in
-    interpret mode."""
-    orig = jsk.composite_tpu
-    monkeypatch.setattr(jC, "_use_stamp_kernel", lambda: True)
-    monkeypatch.setattr(jsk, "composite_tpu",
-                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-
-
 @pytest.mark.parametrize("t", [5, 22, 39])
-def test_observe_batch_matches_jax(local, jax_stamp_kernel, t):
+def test_observe_batch_matches_jax(local, t):
     """Frames along the rollout: by step 22 volleys are in flight and
     player bullets hit the boss; by step 39 bullets have exploded, the
-    boss of lane 1 lost its shield and lane 3 shows damage explosions."""
+    boss of lane 1 lost its shield and lane 3 shows damage explosions. The
+    JAX render on its TPU path: the stamp kernel in interpret mode."""
     jst = local[t][1][0]
-    want = np.asarray(jax.jit(functools.partial(jb.observe_batch, jb.Config()))(
-        to_jax(jst)))
+    want = np.asarray(JR.observe_batch("bossfight")(to_jax(jst)))
     got = tb.observe_batch(tb.Config(), convert.state(tb, jst, "cpu"))
     assert got.dtype == torch.uint8 and got.shape == (N, 3, 64, 64)
     np.testing.assert_array_equal(want, got.numpy())
@@ -301,7 +239,7 @@ def test_observe_batch_matches_jax(local, jax_stamp_kernel, t):
 
 def place_deaths(gs):
     """numpy game State: lane 0's agent on its boss; lane 1's boss in its
-    last phase, no hit points, damage show over (as chip_smoke.py's
+    last phase, no hit points, damage show over (as game_lanes.
     place_boss_deaths)."""
     pos, phase_index = gs.pos.copy(), gs.phase_index.copy()
     phase_timer, hp = gs.phase_timer.copy(), gs.hp.copy()
@@ -318,28 +256,23 @@ def env_run():
     """Both Environments from the same keys, the death lanes placed after
     reset, 3 auto-resetting steps with obs (the JAX render on its stamp
     kernel path, interpret mode)."""
-    with pytest.MonkeyPatch.context() as mp:
-        orig = jsk.composite_tpu
-        mp.setattr(jC, "_use_stamp_kernel", lambda: True)
-        mp.setattr(jsk, "composite_tpu",
-                   lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-        jenv = pg.make("bossfight")
-        tenv = pt.make("bossfight", device="cpu")
-        jbank = jenv.generate_bank(jax.random.key(3), num_levels=16)
-        tbank = tenv.generate_bank(pt.random.key(3), 16)
-        jst, _ = jenv.reset(jbank, jax.random.key(4), num_envs=N)
-        start = np_tree(jst)
-        start = start.replace(game=place_deaths(start.game))
-        jst = jax.tree.map(jnp.asarray, start.replace(
-            rng=jax.random.wrap_key_data(start.rng),
-            game=start.game.replace(rng=jax.random.wrap_key_data(start.game.rng))))
-        tst = convert.env_state(tb, start, "cpu")
-        acts = actions(3, seed=5)
-        steps = []
-        for t in range(3):
-            jst, jts = jenv.step(jbank, jst, jnp.asarray(acts[t]))
-            tst, tts = tenv.step(tbank, tst, torch.from_numpy(acts[t]))
-            steps.append((np_tree(jst), np_tree(jts), tst, tts))
+    jenv = JR.env("bossfight", tpu=True)
+    tenv = pt.make("bossfight", device="cpu")
+    jbank = JR.bank("bossfight", seed=3)
+    tbank = tenv.generate_bank(pt.random.key(3), 8)
+    jst, _ = jenv.reset(jbank, jax.random.key(4), num_envs=N)
+    start = np_tree(jst)
+    start = start.replace(game=place_deaths(start.game))
+    jst = jax.tree.map(jnp.asarray, start.replace(
+        rng=jax.random.wrap_key_data(start.rng),
+        game=start.game.replace(rng=jax.random.wrap_key_data(start.game.rng))))
+    tst = convert.env_state(tb, start, "cpu")
+    acts = actions(3, seed=5)
+    steps = []
+    for t in range(3):
+        jst, jts = jenv.step(jbank, jst, jnp.asarray(acts[t]))
+        tst, tts = tenv.step(tbank, tst, torch.from_numpy(acts[t]))
+        steps.append((np_tree(jst), np_tree(jts), tst, tts))
     return steps
 
 
@@ -389,9 +322,7 @@ def test_observe_matches_jax_late(local, t):
     """The single-env observe on the rollout's frames with damage
     explosions and an unshielded boss (step 39)."""
     jst = local[t][1][0]
-    f = jax.jit(functools.partial(jb.observe, jb.Config()))
-    want = np.stack([np.asarray(f(jax.tree.map(lambda x: x[i], to_jax(jst))))
-                     for i in range(N)])
+    want = JR.observe_each("bossfight", (), to_jax(jst))
     got = tb.observe(tb.Config(), convert.state(tb, jst, "cpu"))
     np.testing.assert_array_equal(want, got.numpy())
 
@@ -405,63 +336,9 @@ def test_render_matches_jax(env_index):
     RP.check_render("bossfight", env_index=env_index, n=4, steps=40, fire=0.5)
 
 
-# ---------------------------------------------------------------------------
-# mode="easy" (common_systems.cpp:104, 202): half the boss bullets' speed
-# and a shorter shield jitter; held like the default mode
-# ---------------------------------------------------------------------------
-
-EASY_J, EASY_T = jb.Config(mode="easy"), tb.Config(mode="easy")
-T_EASY = 8
-
-
-@pytest.fixture(scope="module")
-def easy_run():
-    """A 64-level easy bank from both sides, and T_EASY steps of N envs
-    each side from its own state (reset from the bank's first N levels,
-    the default mode's start lanes), with their observe_batch inputs."""
-    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(9), i))(
-        jnp.arange(64, dtype=jnp.uint32))
-    jl = np_tree(jax.jit(jax.vmap(functools.partial(jb.generate, EASY_J)))(
-        keys))
-    tl = tb.generate(EASY_T, R.fold_in(R.key(9), torch.arange(64)))
-    jstep = jax.jit(jax.vmap(functools.partial(jb.step, EASY_J)))
-    st = start_state(jl)
-    jst, tst = to_jax(st), convert.state(tb, st, "cpu")
-    acts = actions(T_EASY, seed=5)
-    steps = []
-    for t in range(T_EASY):
-        jst, jr, jd, _ = jstep(jst, jnp.asarray(acts[t]))
-        tst, tr, td, _ = tb.step(EASY_T, tst, torch.from_numpy(acts[t]))
-        steps.append((np_tree(jst), jr, jd, tst, tr, td))
-    return jl, tl, steps, jst
-
-
-@pytest.mark.parametrize("field", LEVEL_FIELDS)
-def test_easy_generate_matches(easy_run, field):
-    jl, tl, _, _ = easy_run
-    same(getattr(jl, field), getattr(tl, field), field)
-
-
-@pytest.mark.parametrize("t", range(T_EASY))
-def test_easy_steps_match(easy_run, t):
-    """Every field, reward and termination exact at every step."""
-    want, jr, jd, got, tr, td = easy_run[2][t]
-    for f in STATE_FIELDS:
-        same(getattr(want, f), getattr(got, f), f"step {t}: {f}")
-    same(jr, tr, f"step {t}: reward")
-    same(jd, td, f"step {t}: done")
-
-
-def test_easy_observe_matches_jax(easy_run, jax_stamp_kernel):
-    """observe_batch (the TPU's stamp semantics) and the single-env
-    observe after the last step."""
-    _, _, steps, jst = easy_run
-    want = np.asarray(jax.jit(functools.partial(jb.observe_batch, EASY_J))(
-        jst))
-    got = tb.observe_batch(EASY_T, steps[-1][3])
-    np.testing.assert_array_equal(want, got.numpy())
-    f = jax.jit(functools.partial(jb.observe, EASY_J))
-    want = np.stack([np.asarray(f(jax.tree.map(lambda x: x[i], jst)))
-                     for i in range(N)])
-    np.testing.assert_array_equal(want, tb.observe(EASY_T,
-                                                   steps[-1][3]).numpy())
+@pytest.mark.parametrize("case", ["bossfight_boss_bullets"])
+def test_rotated_sprites_match_jax_on_texel_edges(case):
+    """The rotated boss bullets with a pixel on a texel edge (within an ulp) in
+    every env: the port's observe equals the JAX package's, bitwise
+    (tests/texel_edges.py, on this file's rollout programs)."""
+    texel_edges.check(case)

@@ -10,6 +10,9 @@ import pytest
 
 from procgen2_tpu.tools.bossfight_ref import BossfightRefSim as JSim
 from procgen2_tpu_torch.tools.bossfight_ref import BossfightRefSim as TSim
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SEEDS = (0, 1, 3, 6)
 STEPS = 300

@@ -17,6 +17,9 @@ import procgen2_tpu_torch as pt
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.dist.rollout import _scan
 from procgen2_tpu_torch.render import compositor
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 aten = torch.ops.aten
 # ops that make a tensor from host data, or read a device value on the host

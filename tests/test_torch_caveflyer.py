@@ -30,15 +30,13 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-import procgen2_tpu as pg
+import game_lanes
+import jax_reference as JR
 import procgen2_tpu_torch as pt
 from procgen2_tpu.gen import kruskal as jkruskal
 from procgen2_tpu.gen import rooms as jrooms
 from procgen2_tpu.games import caveflyer as jcave
 from procgen2_tpu.physics import tiles as jtiles
-from procgen2_tpu.render import compositor as jC
-from procgen2_tpu.render import scene_kernel as jsk
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import caveflyer as tcave
 from procgen2_tpu_torch.gen import kruskal as tkruskal
@@ -46,6 +44,10 @@ from procgen2_tpu_torch.gen import rooms as trooms
 from procgen2_tpu_torch.physics import tiles as ttiles
 from procgen2_tpu_torch.utils import convert
 import render_parity as RP
+import texel_edges
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NUM_LEVELS, N, T = 64, 8, 6
 LEVEL_FIELDS = [f.name for f in dataclasses.fields(tcave.Level)]
@@ -88,29 +90,21 @@ def _keys(n, seed=7):
                                                     torch.arange(n)))
 
 
-def _jax_scene_kernel(mp):
-    """Put the JAX package's render on its TPU path: `scene_tpu_raw`, run
-    in interpret mode (a `pytest.MonkeyPatch` `mp`)."""
-    orig = jsk.scene_tpu_raw
-    mp.setattr(jC, "_use_stamp_kernel", lambda: True)
-    mp.setattr(jsk, "scene_tpu_raw",
-               lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-
-
 def _generate_both(mode, n):
-    jk, tk = _keys(n)
-    jl = jax.jit(jax.vmap(functools.partial(
-        jcave.generate, jcave.Config(mode=mode))))(jk)
+    """The JAX package's bank of n levels in `mode` (`Environment.
+    generate_bank`, level i keyed as `_keys` keys it) and the port's."""
+    _, tk = _keys(n)
+    jl = JR.bank("caveflyer", (("mode", mode),), seed=7, n=n)
     return np_tree(jl), tcave.generate(tcave.Config(mode=mode), tk)
 
 
 @pytest.fixture(scope="module")
 def jax_env():
-    """The JAX Environment and its bank of NUM_LEVELS levels, level i keyed
-    fold_in(key(7), i) as `_keys` keys it: every easy-mode fixture shares
-    this one compile of the level generator."""
-    jenv = pg.make("caveflyer")
-    return jenv, jenv.generate_bank(jax.random.key(7), num_levels=NUM_LEVELS)
+    """The JAX Environment (its render on the TPU path: B1's kernel
+    `scene_tpu_raw` in interpret mode) and its bank of NUM_LEVELS levels,
+    level i keyed fold_in(key(7), i) as `_keys` keys it: every easy-mode
+    fixture shares this one compile of the level generator."""
+    return JR.env("caveflyer", tpu=True), JR.bank("caveflyer", n=NUM_LEVELS)
 
 
 @pytest.fixture(scope="module")
@@ -351,7 +345,7 @@ def trajectories(banks):
     st = random_states(jl, 0)
     actions = np.random.default_rng(1).integers(0, 15, (T, N)).astype(np.int32)
     actions[:2, ::3] = 9  # fire
-    jstep = jax.jit(jax.vmap(functools.partial(jcave.step, jcave.Config())))
+    jstep = JR.vmapped("caveflyer", "step")
     jst = _to_jax_state(st)
     tst = convert.state(tcave, st, "cpu")
     out = []
@@ -388,12 +382,10 @@ def test_step_bullets_strike_every_kind(trajectories):
 @pytest.fixture(scope="module")
 def run(jax_env):
     """Both Environments from the same keys; after reset the goal lane and
-    the hazard lane are placed with chip_smoke's placement (carried across
+    the hazard lane are placed with game_lanes' placement (carried across
     with utils/convert); T steps with the same actions, rendered (the JAX
     render on its TPU path)."""
-    with pytest.MonkeyPatch.context() as mp:
-        _jax_scene_kernel(mp)
-        return _run(*jax_env)
+    return _run(*jax_env)
 
 
 def _run(jenv, jbank):
@@ -403,7 +395,7 @@ def _run(jenv, jbank):
     tst, tts = tenv.reset(tbank, pt.random.key(8), N)
     reset = (np_tree(jst), np.asarray(jts.obs), tst, tts)
     start = np_tree(jst)
-    game, lanes = chip_smoke.place_caveflyer_lanes(
+    game, lanes = game_lanes.place_caveflyer_lanes(
         convert.state(tcave, start.game, "cpu"), N)
     start = start.replace(game=start.game.replace(
         pos=game.pos.numpy(), vel=game.vel.numpy(),
@@ -457,13 +449,13 @@ def test_placed_lanes_end_and_restart(run):
 
 
 def test_chip_smoke_places_the_same_lanes(run):
-    """chip_smoke.py's placement (the one `run` uses) picks its lanes from
-    the first lanes only: on the first 8 of 16 envs it places the same
-    lanes at the same positions as on a batch of 8, so the card's run and
-    the CPU re-run of its first 8 envs start alike."""
+    """game_lanes' placement (the one `run` and chip_smoke.py use) picks its
+    lanes from the first lanes only: on the first 8 of 16 envs it places
+    the same lanes at the same positions as on a batch of 8, so the card's
+    run and the CPU re-run of its first 8 envs start alike."""
     env = pt.make("caveflyer", device="cpu")
     bank = env.generate_bank(pt.random.key(7), NUM_LEVELS)
-    placed = [chip_smoke.place_caveflyer_lanes(
+    placed = [game_lanes.place_caveflyer_lanes(
         env.reset(bank, pt.random.key(8), n)[0].game, N) for n in (2 * N, N)]
     (big, big_lanes), (small, small_lanes) = placed
     assert big_lanes == small_lanes == run["lanes"]
@@ -474,10 +466,8 @@ def test_chip_smoke_places_the_same_lanes(run):
 @pytest.fixture(scope="module")
 def jax_observe():
     """The JAX package's observe_batch on its TPU path, jitted once."""
-    with pytest.MonkeyPatch.context() as mp:
-        _jax_scene_kernel(mp)
-        fn = jax.jit(functools.partial(jcave.observe_batch, jcave.Config()))
-        yield lambda st: np.asarray(fn(_to_jax_state(st)))
+    fn = JR.observe_batch("caveflyer")
+    return lambda st: np.asarray(fn(_to_jax_state(st)))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -519,7 +509,7 @@ def test_chip_smoke_lane_placement_needs_a_hazard(run):
     bare = dataclasses.replace(gs, level=lv,
                                target_alive=torch.zeros_like(gs.target_alive))
     with pytest.raises(ValueError, match="no hazard"):
-        chip_smoke.place_caveflyer_lanes(bare, N)
+        game_lanes.place_caveflyer_lanes(bare, N)
 
 
 # ---------------------------------------------------------------------------
@@ -553,3 +543,11 @@ def test_observe_exact_matches_jax():
 
 def test_observe_exact_selectors_match_the_jax_render():
     RP.check_exact_selectors("caveflyer", fire=0.4)
+
+
+@pytest.mark.parametrize("case", ["caveflyer_ship"])
+def test_rotated_sprites_match_jax_on_texel_edges(case):
+    """The rotated ship with a pixel on a texel edge (within an ulp) in
+    every env: the port's observe equals the JAX package's, bitwise
+    (tests/texel_edges.py, on this file's rollout programs)."""
+    texel_edges.check(case)

@@ -10,6 +10,9 @@ import pytest
 
 from procgen2_tpu.tools import cenv_loader as jcl
 from procgen2_tpu_torch.tools import cenv_loader as tcl
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 STRUCTS = ("_Value", "_Buffer", "_KeyValue", "_Option", "_MakeData",
            "_ResetData", "_StepData", "_RenderData")

@@ -9,7 +9,7 @@ bitwise: f32 compared as int32 views, everything else equal.
   and completions;
 * `Environment.step` with lane 0 left with nothing to collect (+10) and
   lane 1 with a hatched enemy on its agent (death, 0), both of which end
-  and auto-reset (chip_smoke.py's placement), states, rewards and obs at
+  and auto-reset (game_lanes' placement), states, rewards and obs at
   every step;
 * `observe_batch` in every mode: the kind field (walls, pellets, live
   orbs) and the one stamp group of enemies and agent, which the JAX
@@ -28,9 +28,9 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import game_lanes
+import jax_reference as JR
 from jax_capture import onehot_inputs, render_inputs
-import procgen2_tpu as pg
 import procgen2_tpu_torch as pt
 from procgen2_tpu.games import chaser as jchase
 from procgen2_tpu_torch import random as R
@@ -38,6 +38,9 @@ from procgen2_tpu_torch.games import chaser as tchase
 from procgen2_tpu_torch.render import compositor as tC
 from procgen2_tpu_torch.utils import convert
 import render_parity as RP
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NUM_LEVELS, N, T = 16, 8, 8
 MODES = ("easy", "hard", "extreme")
@@ -93,8 +96,8 @@ def banks():
     jk, tk = _keys(NUM_LEVELS)
     out = {}
     for mode in MODES:
-        want = np_tree(jax.jit(jax.vmap(functools.partial(
-            jchase.generate, jchase.Config(mode=mode))))(jk))
+        want = np_tree(JR.vmapped("chaser", "generate",
+                                  (("mode", mode),))(jk))
         out[mode] = (want, tchase.generate(tchase.Config(mode=mode), tk))
     return out
 
@@ -244,8 +247,7 @@ def trajectories(banks):
         actions = np.random.default_rng(10 + m).integers(
             0, 15, (T, NUM_LEVELS)).astype(np.int32)
         actions[0, np.arange(NUM_LEVELS) % 6 >= COMPLETE] = 4
-        jstep = jax.jit(jax.vmap(functools.partial(
-            jchase.step, jchase.Config(mode=mode))))
+        jstep = JR.vmapped("chaser", "step", (("mode", mode),))
         jst = _to_jax_state(st)
         tst = convert.state(tchase, st, "cpu")
         steps = []
@@ -343,17 +345,17 @@ def test_argmin_keeps_the_first_index_on_ties():
 def run():
     """Both Environments (the default Config, easy) from the same keys;
     after reset the completion lane and the death lane are placed with
-    chip_smoke's placement (carried across with utils/convert); T steps
+    game_lanes' placement (carried across with utils/convert); T steps
     with the same actions, the placed lanes' first action 4 (no move)."""
-    jenv = pg.make("chaser")
+    jenv = JR.env("chaser")
     tenv = pt.make("chaser", device="cpu")
-    jbank = jenv.generate_bank(jax.random.key(7), num_levels=NUM_LEVELS)
+    jbank = JR.bank("chaser", n=NUM_LEVELS)
     tbank = tenv.generate_bank(pt.random.key(7), NUM_LEVELS)
     jst, jts = jenv.reset(jbank, jax.random.key(8), num_envs=N)
     tst, tts = tenv.reset(tbank, pt.random.key(8), N)
     reset = (np_tree(jst), np.asarray(jts.obs), tst, tts)
     start = np_tree(jst)
-    game, lanes = chip_smoke.place_chaser_lanes(
+    game, lanes = game_lanes.place_chaser_lanes(
         convert.state(tchase, start.game, "cpu"))
     start = start.replace(game=start.game.replace(**{
         f: getattr(game, f).numpy() for f in (
@@ -363,7 +365,7 @@ def run():
         rng=jax.random.wrap_key_data(start.rng),
         game=start.game.replace(rng=jax.random.wrap_key_data(start.game.rng))))
     tst = convert.env_state(tchase, start, "cpu")
-    actions = chip_smoke.hold_first_action(torch.from_numpy(
+    actions = game_lanes.hold_first_action(torch.from_numpy(
         np.random.default_rng(3).integers(0, 15, (T, N)).astype(np.int32)),
         lanes).numpy()
     steps = []
@@ -422,8 +424,8 @@ def test_observe_batch_matches_jax(banks, mode):
     frames, fleeing walkers; orbs live and taken; enemies overlapping)
     against the JAX package's jitted render."""
     st = random_states(banks[mode][0], 20, n=N)
-    want = np.asarray(jax.jit(functools.partial(
-        jchase.observe_batch, jchase.Config(mode=mode)))(_to_jax_state(st)))
+    want = np.asarray(JR.observe_batch("chaser", (("mode", mode),),
+                                       tpu=False)(_to_jax_state(st)))
     tst = convert.state(tchase, st, "cpu")
     got = tchase.observe_batch(tchase.Config(mode=mode), tst)
     assert got.dtype == torch.uint8 and got.shape == (N, 3, 64, 64)

@@ -18,6 +18,9 @@ from procgen2_tpu.utils import checkpoint as jckpt
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.utils import checkpoint
 from torch_parity import np_tree, same_tree
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, LEVELS, WARM, CONT = 4, 8, 6, 12
 

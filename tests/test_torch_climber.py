@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import game_lanes
+import jax_reference as JR
 from jax_capture import render_inputs
-import procgen2_tpu as pg
 import procgen2_tpu_torch as pt
 from procgen2_tpu.games import climber as jclimb
 from procgen2_tpu_torch import random as R
@@ -25,6 +25,9 @@ from procgen2_tpu_torch.games import climber as tclimb
 from procgen2_tpu_torch.render import scene_kernel as tsk
 from procgen2_tpu_torch.utils import convert
 import render_parity as RP
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NUM_LEVELS, N, T = 64, 8, 6
 LEVEL_FIELDS = [f.name for f in dataclasses.fields(tclimb.Level)]
@@ -62,10 +65,9 @@ def same_tree(want, got):
 
 
 def _generate_both(cfg_kw, n):
-    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(7), i))(
-        jnp.arange(n, dtype=jnp.uint32))
-    jl = jax.jit(jax.vmap(functools.partial(
-        jclimb.generate, jclimb.Config(**cfg_kw))))(keys)
+    """The JAX package's bank of n levels (`Environment.generate_bank`,
+    level i keyed fold_in(key(7), i)) and the port's."""
+    jl = JR.bank("climber", tuple(sorted(cfg_kw.items())), seed=7, n=n)
     tl = tclimb.generate(tclimb.Config(**cfg_kw),
                          R.fold_in(R.key(7), torch.arange(n)))
     return np_tree(jl), tl
@@ -94,7 +96,7 @@ def test_generate_covers_the_branches(banks):
 
 
 def test_generate_easy_mode():
-    jl, tl = _generate_both(dict(easy_mode=True), 16)
+    jl, tl = _generate_both(dict(easy_mode=True), 8)
     for f in LEVEL_FIELDS:
         same(getattr(jl, f), getattr(tl, f))
 
@@ -165,7 +167,7 @@ def trajectories(banks):
     jl, _ = banks
     st = random_states(jl, 0)
     actions = np.random.default_rng(1).integers(0, 15, (T, N)).astype(np.int32)
-    jstep = jax.jit(jax.vmap(functools.partial(jclimb.step, jclimb.Config())))
+    jstep = JR.vmapped("climber", "step")
     jst = _to_jax_state(st)
     tst = convert.state(tclimb, st, "cpu")
     out = []
@@ -191,9 +193,9 @@ def run():
     """Both Environments from the same keys; after reset the mob lane and
     the last-crystal lane are placed (carried across with utils/convert);
     T steps with the same actions, rendered."""
-    jenv = pg.make("climber")
+    jenv = JR.env("climber")
     tenv = pt.make("climber", device="cpu")
-    jbank = jenv.generate_bank(jax.random.key(7), num_levels=N)
+    jbank = JR.bank("climber", n=N)
     tbank = tenv.generate_bank(pt.random.key(7), N)
     jst, jts = jenv.reset(jbank, jax.random.key(8), num_envs=N)
     tst, tts = tenv.reset(tbank, pt.random.key(8), N)
@@ -248,11 +250,11 @@ def test_placed_lanes_end_and_restart(run):
 
 
 def test_chip_smoke_places_the_same_lanes(run):
-    """chip_smoke.py's torch placement, which makes both lanes end on the
+    """game_lanes' torch placement, which makes both lanes end on the
     card, puts them where this file's numpy placement does."""
     jst, _, tst, _ = run["reset"]
     want, lanes = place_lanes(jst.game, N)
-    got, glanes = chip_smoke.place_climber_lanes(tst.game, N)
+    got, glanes = game_lanes.place_climber_lanes(tst.game, N)
     assert glanes == lanes
     for f in ("pos", "vel", "point_taken"):
         same(getattr(want, f), getattr(got, f))
@@ -264,8 +266,8 @@ def test_observe_batch_matches_jax(banks, seed):
     the level, every pose and frame) against the JAX package's CPU render,
     which renders the expanded field through its `scene_reference`."""
     st = random_states(banks[0], 10 + seed)
-    want = np.asarray(jax.jit(functools.partial(
-        jclimb.observe_batch, jclimb.Config()))(_to_jax_state(st)))
+    want = np.asarray(JR.observe_batch("climber", tpu=False)(
+        _to_jax_state(st)))
     got = tclimb.observe_batch(tclimb.Config(), convert.state(tclimb, st, "cpu"))
     assert got.dtype == torch.uint8 and got.shape == (N, 3, 64, 64)
     np.testing.assert_array_equal(want, got.numpy())

@@ -10,12 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax_reference as JR
 from jax_capture import render_inputs
 from procgen2_tpu.games import coinrun as jcoin
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import coinrun as tcoin
 from procgen2_tpu_torch.utils import convert
 import render_parity as RP
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NUM_LEVELS, N, T = 64, 8, 6
 LEVEL_FIELDS = [f.name for f in dataclasses.fields(tcoin.Level)]
@@ -49,8 +53,10 @@ def _keys(n, seed=7):
 
 
 def _generate_both(cfg_kw, n):
-    jl = jax.jit(jax.vmap(functools.partial(jcoin.generate,
-                                            jcoin.Config(**cfg_kw))))(_keys(n))
+    """The JAX package's bank of n levels (`Environment.generate_bank`,
+    level i keyed fold_in(key(7), i), as `_keys` keys them) and the
+    port's."""
+    jl = JR.bank("coinrun", tuple(sorted(cfg_kw.items())), seed=7, n=n)
     tl = tcoin.generate(tcoin.Config(**cfg_kw),
                         R.fold_in(R.key(7), torch.arange(n)))
     return np_tree(jl), tl
@@ -78,7 +84,7 @@ def test_generate_covers_the_branches(banks):
 
 def test_generate_with_features_off():
     jl, tl = _generate_both(dict(allow_pit=False, allow_crate=False,
-                                 allow_dy=False, allow_mobs=False), 16)
+                                 allow_dy=False, allow_mobs=False), 8)
     for f in LEVEL_FIELDS:
         same(getattr(jl, f), getattr(tl, f))
     assert not (tl.grid == tcoin.CRATE).any()
@@ -144,7 +150,7 @@ def trajectories(banks):
     jl, _ = banks
     st = place_on_hazards(random_states(jl, 0))
     actions = np.random.default_rng(1).integers(0, 15, (T, N)).astype(np.int32)
-    jstep = jax.jit(jax.vmap(functools.partial(jcoin.step, jcoin.Config())))
+    jstep = JR.vmapped("coinrun", "step")
     jst = jax.tree.map(jnp.asarray, st.replace(rng=jax.random.wrap_key_data(st.rng)))
     tst = convert.state(tcoin, st, "cpu")
     out = []

@@ -19,6 +19,9 @@ from procgen2_tpu_torch.physics import coinrun_step as cs
 from procgen2_tpu_torch.physics import tiles
 from procgen2_tpu_torch.render import _build
 from procgen2_tpu_torch.utils import tree_map
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SOURCE = pathlib.Path(_build.CSRC) / "coinrun_step.cu"
 

@@ -14,7 +14,7 @@ Environment.render at 512 px against the CPU; the learner-facing
 surface: `dist.rollout` as one CUDA graph against eager steps, a graph
 per bank, the graph table's bound and shared pool under fresh policies
 and interleaved replays, and a checkpoint round trip on the card; the
-main paths at the other configs (chip_smoke.MODE_CASES), make_vec in one
+main paths at the other configs (game_lanes.MODE_CASES), make_vec in one
 process and make(wave_game) on the card; the reference's own levels
 (two seeds of each kernel game at 256 envs) through rollout graphs
 against the CPU; and coinrun's step kernel against the plain torch step,
@@ -39,7 +39,8 @@ import dataclasses
 import pytest
 import torch
 
-import chip_smoke
+import game_lanes
+import kernel_inputs
 import procgen2_tpu_torch as pt
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch import trig
@@ -61,13 +62,21 @@ def dev():
     return torch.device("cuda:0")
 
 
+@pytest.fixture
+def smoke(dev):
+    """chip_smoke.py, whose phases some card tests drive at a small size.
+    It is loaded only on a card (after `dev`), never at collection."""
+    import chip_smoke
+    return chip_smoke
+
+
 def _bits(x):
     return x.view(torch.int16)
 
 
 @pytest.mark.parametrize("n,seed", [(1, 0), (257, 1)])
 def test_scene_kernel_matches_plain(dev, n, seed):
-    args = chip_smoke.random_scene(n, dev, seed)
+    args = kernel_inputs.random_scene(n, dev, seed)
     before = sk.scene_raw.launches
     got = sk.scene_raw(*args)
     torch.cuda.synchronize()
@@ -78,13 +87,13 @@ def test_scene_kernel_matches_plain(dev, n, seed):
 def test_scene_kernel_edge_cases(dev):
     """No stamp groups; windows wholly outside the grid; every stamp
     off the frame."""
-    args = list(chip_smoke.random_scene(64, dev, 2))
+    args = list(kernel_inputs.random_scene(64, dev, 2))
     args[1] = torch.full_like(args[1], -1000)  # ty0
     got = sk.scene_raw(*args[:12], [], *args[13:])
     assert torch.equal(_bits(got), _bits(
         sk.scene_raw_reference(*args[:12], [], *args[13:])))
     assert not got.any()  # nothing inside the grid: black
-    args = list(chip_smoke.random_scene(64, dev, 3))
+    args = list(kernel_inputs.random_scene(64, dev, 3))
     off = [(b, v, s, torch.full_like(r, 70), c) for b, v, s, r, c in args[12]]
     got = sk.scene_raw(*args[:12], off, *args[13:])
     assert torch.equal(_bits(got), _bits(
@@ -92,7 +101,7 @@ def test_scene_kernel_edge_cases(dev):
 
 
 def test_scene_kernel_rejects_bad_inputs(dev):
-    args = list(chip_smoke.random_scene(8, dev, 4))
+    args = list(kernel_inputs.random_scene(8, dev, 4))
     bad = list(args)
     bad[1] = args[1].long()
     with pytest.raises(TypeError):
@@ -111,11 +120,11 @@ def test_scene_kernel_rejects_bad_inputs(dev):
 
 @pytest.mark.parametrize("n,seed", [(1, 0), (257, 1), (4096, 2)])
 def test_stamp_kernel_matches_plain(dev, n, seed):
-    """Bossfight's four stamp groups (chip_smoke.random_stamps: variants
+    """Bossfight's four stamp groups (kernel_inputs.random_stamps: variants
     out of range, scale 0, fractional scales, stamps off every edge,
     overlaps): one launch, bitwise equal to the plain version and to one
     launch per group in turn."""
-    img, groups = chip_smoke.random_stamps(n, dev, seed)
+    img, groups = kernel_inputs.random_stamps(n, dev, seed)
     before = stk.composite.launches
     got = stk.composite(img, groups)
     torch.cuda.synchronize()
@@ -130,7 +139,7 @@ def test_stamp_kernel_matches_plain(dev, n, seed):
 def test_stamp_kernel_edge_cases(dev):
     """Every stamp off the frame, or every slot dead: the frame passes
     through unchanged."""
-    img, groups = chip_smoke.random_stamps(64, dev, 3)
+    img, groups = kernel_inputs.random_stamps(64, dev, 3)
     off = [(b, v, s, torch.full_like(r, 64), c) for b, v, s, r, c in groups]
     assert torch.equal(_bits(stk.composite(img, off)), _bits(img))
     dead = [(b, v, torch.zeros_like(s), r, c) for b, v, s, r, c in groups]
@@ -138,7 +147,7 @@ def test_stamp_kernel_edge_cases(dev):
 
 
 def test_stamp_kernel_rejects_bad_inputs(dev):
-    img, groups = chip_smoke.random_stamps(8, dev, 4)
+    img, groups = kernel_inputs.random_stamps(8, dev, 4)
     with pytest.raises(TypeError):
         stk.composite(img.float(), groups)
     bank, var, scale, r0, c0 = groups[0]
@@ -157,14 +166,14 @@ def test_stamp_kernel_rejects_bad_inputs(dev):
 
 
 @pytest.mark.parametrize("n", [1, 257, 4097])
-@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+@pytest.mark.parametrize("case", kernel_inputs.EDGE_CASES)
 def test_stamp_kernel_edge_slots(dev, case, n):
-    """B3 on the edge cases of its staged slot tables (chip_smoke.
+    """B3 on the edge cases of its staged slot tables (kernel_inputs.
     edge_groups: K = 300 in one group, over more than one staging pass;
     40 live slots stacked on one pixel with dead slots between them; P = 40
     at every offset across the lanes' 8-pixel runs and the warps' 16 x 16
     regions): one launch, bitwise equal to the plain version."""
-    img, groups = chip_smoke.edge_stamps(case, n, dev, seed=n)
+    img, groups = kernel_inputs.edge_stamps(case, n, dev, seed=n)
     before = stk.composite.launches
     got = stk.composite(img, groups)
     torch.cuda.synchronize()
@@ -173,12 +182,12 @@ def test_stamp_kernel_edge_slots(dev, case, n):
 
 
 @pytest.mark.parametrize("n", [1, 257, 4097])
-@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+@pytest.mark.parametrize("case", kernel_inputs.EDGE_CASES)
 def test_scene_kernel_edge_slots(dev, case, n):
     """B1 on the same edge cases, with themed and unthemed tile entries
-    for every theme (chip_smoke.edge_scene): bitwise equal to the plain
+    for every theme (kernel_inputs.edge_scene): bitwise equal to the plain
     version."""
-    args = chip_smoke.edge_scene(case, n, dev, seed=n)
+    args = kernel_inputs.edge_scene(case, n, dev, seed=n)
     before = sk.scene_raw.launches
     got = sk.scene_raw(*args)
     torch.cuda.synchronize()
@@ -205,7 +214,7 @@ def _scene_at(obs, n, dev, seed):
     tile_bank = torch.cat([torch.rand((qp * qp, ne, 3, obs, obs),
                                       generator=g, device=dev) * 255 * a, a],
                           dim=2).to(torch.bfloat16)
-    groups = [chip_smoke.random_group(g, n, dev, 6, 8, 300, obs)]
+    groups = [kernel_inputs.random_group(g, n, dev, 6, 8, 300, obs)]
     return (gridp, ri(-pad, 70, (n,)), ri(-pad, 70, (n,)), ri(0, qp, (n,)),
             ri(0, qp, (n,)), ri(0, 3, (n,)), ri(0, 2, (n,)),
             ri(0, 256, (3, 3, gp, gp)).to(torch.bfloat16), tr_tab, tile_bank,
@@ -222,8 +231,8 @@ def test_tiled_kernels_at_other_frame_sizes(dev, obs):
     g.manual_seed(obs)
     img = torch.randint(0, 256, (33, 3, obs, obs), generator=g, device=dev,
                         dtype=torch.int32).to(torch.bfloat16)
-    groups = [chip_smoke.random_group(g, 33, dev, 6, 8, 300, obs),
-              chip_smoke.random_group(g, 33, dev, 3, 40, 7, obs)]
+    groups = [kernel_inputs.random_group(g, 33, dev, 6, 8, 300, obs),
+              kernel_inputs.random_group(g, 33, dev, 3, 40, 7, obs)]
     assert torch.equal(_bits(stk.composite(img, groups)),
                        _bits(stk.composite_reference(img, groups)))
     args = _scene_at(obs, 33, dev, obs + 1)
@@ -244,14 +253,14 @@ def test_tiled_kernels_reject_shapes_they_do_not_take(dev):
     not a multiple of 8, a frame or tile bank off a 16-byte boundary, and
     (B1) an obs above scene_kernel.MAX_OBS raise ValueError; nothing is
     sent to the plain version."""
-    img, groups = chip_smoke.random_stamps(8, dev, 5)
+    img, groups = kernel_inputs.random_stamps(8, dev, 5)
     before = stk.composite.launches
     with pytest.raises(ValueError):
         stk.composite(_misaligned(img), groups)
     with pytest.raises(ValueError):
         stk.composite(img[..., :60, :60].contiguous(), groups)
     assert stk.composite.launches == before
-    args = list(chip_smoke.random_scene(8, dev, 6))
+    args = list(kernel_inputs.random_scene(8, dev, 6))
     before = sk.scene_raw.launches
     bad = list(args)
     bad[9] = _misaligned(args[9])
@@ -271,10 +280,10 @@ def test_tiled_kernels_reject_shapes_they_do_not_take(dev):
 
 @pytest.mark.parametrize("n,seed", [(1, 0), (257, 1), (4096, 2)])
 def test_stamp_sum_kernel_matches_plain(dev, n, seed):
-    """B4 on groups with P = 8, 12 and 20 (chip_smoke.random_sum_groups:
+    """B4 on groups with P = 8, 12 and 20 (kernel_inputs.random_sum_groups:
     variants out of range, scale 0, fractional scales, stamps off every
     edge, overlaps): one launch each, bitwise equal to the plain version."""
-    for group in chip_smoke.random_sum_groups(n, dev, seed):
+    for group in kernel_inputs.random_sum_groups(n, dev, seed):
         before = stk.stamps.launches
         got = stk.stamps(*group, 64)
         torch.cuda.synchronize()
@@ -286,7 +295,7 @@ def test_stamp_sum_kernel_matches_plain(dev, n, seed):
 
 def test_stamp_sum_kernel_edge_cases(dev):
     """Every stamp off the frame, every slot dead, or no slot: zeros."""
-    for b, v, s, r, c in chip_smoke.random_sum_groups(64, dev, 3):
+    for b, v, s, r, c in kernel_inputs.random_sum_groups(64, dev, 3):
         for group in ((b, v, s, torch.full_like(r, 64), c),
                       (b, v, torch.zeros_like(s), r, c),
                       (b, v[:, :0].contiguous(), s[:, :0].contiguous(),
@@ -296,7 +305,7 @@ def test_stamp_sum_kernel_edge_cases(dev):
 
 
 def test_stamp_sum_kernel_rejects_bad_inputs(dev):
-    bank, var, scale, r0, c0 = chip_smoke.random_sum_groups(8, dev, 4)[0]
+    bank, var, scale, r0, c0 = kernel_inputs.random_sum_groups(8, dev, 4)[0]
     with pytest.raises(TypeError):
         stk.stamps(bank.float(), var, scale, r0, c0, 64)
     with pytest.raises(TypeError):
@@ -308,13 +317,13 @@ def test_stamp_sum_kernel_rejects_bad_inputs(dev):
 
 
 @pytest.mark.parametrize("n", [1, 257])
-@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+@pytest.mark.parametrize("case", kernel_inputs.EDGE_CASES)
 def test_stamp_sum_kernel_edge_slots(dev, case, n):
-    """B4 on the edge cases of its staged slot table (chip_smoke.
+    """B4 on the edge cases of its staged slot table (kernel_inputs.
     edge_sum_group: K = 300 over more than one staging pass, 40 live slots
     stacked on one pixel in one group, P = 40 at every offset): one
     launch, bitwise equal to the plain version."""
-    group = chip_smoke.edge_sum_group(case, n, dev, seed=n)
+    group = kernel_inputs.edge_sum_group(case, n, dev, seed=n)
     before = stk.stamps.launches
     got = stk.stamps(*group, 64)
     torch.cuda.synchronize()
@@ -327,8 +336,8 @@ def test_stamp_sum_kernel_edge_slots(dev, case, n):
 def test_field_scene_kernel_odd_kinds(dev, n):
     """B5 on a kind field of fractions, -0.0, negative kinds, kinds beyond
     int8 (with entries of their own), infinities and NaN
-    (chip_smoke.edge_field): bitwise equal to the plain version."""
-    args = chip_smoke.edge_field(n, dev, seed=n)
+    (kernel_inputs.edge_field): bitwise equal to the plain version."""
+    args = kernel_inputs.edge_field(n, dev, seed=n)
     before = sk.scene.launches
     got = sk.scene(*args)
     torch.cuda.synchronize()
@@ -338,7 +347,7 @@ def test_field_scene_kernel_odd_kinds(dev, n):
 
 def _field_at(obs, n, dev, seed):
     """scene inputs at frame size obs: kinds 0-5, 2.5 and 200 (a fraction
-    and a kind beyond int8), the entries of chip_smoke.random_field plus
+    and a kind beyond int8), the entries of kernel_inputs.random_field plus
     kind 200, and a stamp group of K = 300 (more than one staging
     pass)."""
     g = torch.Generator(device=dev)
@@ -357,7 +366,7 @@ def _field_at(obs, n, dev, seed):
     tile_bank = torch.cat([torch.rand((nph, len(kinds), 3, obs, obs),
                                       generator=g, device=dev) * 255 * a, a],
                           dim=2).to(torch.bfloat16)
-    groups = [chip_smoke.random_group(g, n, dev, 6, 8, 300, obs)]
+    groups = [kernel_inputs.random_group(g, n, dev, 6, 8, 300, obs)]
     return (X, ri(0, nph, (n,)), ri(0, 2, (n,)), tile_bank, kinds, themes,
             groups, obs)
 
@@ -371,11 +380,11 @@ def test_sum_and_field_kernels_at_other_frame_sizes(dev, obs):
     the plain versions."""
     g = torch.Generator(device=dev)
     g.manual_seed(obs)
-    group = chip_smoke.random_group(g, 33, dev, 6, 8, 300, obs)
+    group = kernel_inputs.random_group(g, 33, dev, 6, 8, 300, obs)
     for a, b in zip(stk.stamps(*group, obs),
                     stk.stamps_reference(*group, obs)):
         assert torch.equal(_bits(a), _bits(b))
-    big = chip_smoke.random_group(g, 33, dev, 3, 40, 7, obs)
+    big = kernel_inputs.random_group(g, 33, dev, 3, 40, 7, obs)
     for a, b in zip(stk.stamps(*big, obs), stk.stamps_reference(*big, obs)):
         assert torch.equal(_bits(a), _bits(b))
     args = _field_at(obs, 33, dev, obs + 1)
@@ -387,13 +396,13 @@ def test_sum_and_field_kernels_reject_shapes_they_do_not_take(dev):
     """B4 and B5 move frame rows 8 bf16 at a time: an obs that is not a
     multiple of 8, and (B5) an X or tile bank off a 16-byte boundary,
     raise ValueError; nothing is launched or sent to the plain version."""
-    group = chip_smoke.random_sum_groups(8, dev, 5)[0]
+    group = kernel_inputs.random_sum_groups(8, dev, 5)[0]
     before = stk.stamps.launches
     for obs in (60, 4, 65):
         with pytest.raises(ValueError):
             stk.stamps(*group, obs)
     assert stk.stamps.launches == before
-    X, p, theme, tb, kinds, themes, groups, obs = chip_smoke.random_field(
+    X, p, theme, tb, kinds, themes, groups, obs = kernel_inputs.random_field(
         8, dev, 6)
     before = sk.scene.launches
     with pytest.raises(ValueError):
@@ -406,18 +415,18 @@ def test_sum_and_field_kernels_reject_shapes_they_do_not_take(dev):
     assert sk.scene.launches == before
 
 
-def test_off_kernel_stamp_groups_on_card(dev):
+def test_off_kernel_stamp_groups_on_card(dev, smoke):
     """Chaser's (P, K) through stamps_from_pixel_bank and composite_stamps
     on the card: no kernel launched, bitwise equal to the CPU
     (chip_smoke.off_kernel_groups raises otherwise)."""
-    chip_smoke.off_kernel_groups(64, dev)
+    smoke.off_kernel_groups(64, dev)
 
 
 @pytest.mark.parametrize("n,seed", [(1, 0), (257, 1), (4096, 2)])
 def test_field_scene_kernel_matches_plain(dev, n, seed):
-    """B5 on random scenes (chip_smoke.random_field: 5 tile entries, two
+    """B5 on random scenes (kernel_inputs.random_field: 5 tile entries, two
     themed; joint phases out of range at both ends; two stamp groups)."""
-    args = chip_smoke.random_field(n, dev, seed)
+    args = kernel_inputs.random_field(n, dev, seed)
     before = sk.scene.launches
     got = sk.scene(*args)
     torch.cuda.synchronize()
@@ -428,7 +437,7 @@ def test_field_scene_kernel_matches_plain(dev, n, seed):
 def test_field_scene_kernel_edge_cases(dev):
     """No stamp groups; joint phases past either end read the end
     phases."""
-    X, p, theme, tb, kinds, themes, groups, obs = chip_smoke.random_field(
+    X, p, theme, tb, kinds, themes, groups, obs = kernel_inputs.random_field(
         64, dev, 3)
     got = sk.scene(X, p, theme, tb, kinds, themes, [], obs)
     assert torch.equal(_bits(got), _bits(
@@ -443,7 +452,7 @@ def test_field_scene_kernel_edge_cases(dev):
 
 
 def test_field_scene_kernel_rejects_bad_inputs(dev):
-    X, p, theme, tb, kinds, themes, groups, obs = chip_smoke.random_field(
+    X, p, theme, tb, kinds, themes, groups, obs = kernel_inputs.random_field(
         8, dev, 4)
     with pytest.raises(TypeError):
         sk.scene(X.float(), p, theme, tb, kinds, themes, groups, obs)
@@ -492,7 +501,7 @@ def test_coinrun_on_card_matches_cpu(dev):
         env = pt.make("coinrun", device=d)
         bank = env.generate_bank(R.key(5, env.device), n)
         state, ts = env.reset(bank, R.key(6, env.device), n)
-        gs, lanes = chip_smoke.place_on_hazards(state.game, n)
+        gs, lanes = game_lanes.place_on_hazards(state.game, n)
         state = dataclasses.replace(state, game=gs)
         frames, states, rewards = [ts.obs.cpu()], [], []
         g = torch.Generator().manual_seed(0)
@@ -530,7 +539,7 @@ def test_bossfight_on_card_matches_cpu(dev):
         env = pt.make("bossfight", device=d)
         bank = env.generate_bank(R.key(5, env.device), n)
         state, ts = env.reset(bank, R.key(6, env.device), n)
-        gs, _ = chip_smoke.place_boss_deaths(state.game)
+        gs, _ = game_lanes.place_boss_deaths(state.game)
         state = dataclasses.replace(state, game=gs)
         frames, states, rewards = [ts.obs.cpu()], [], []
         g = torch.Generator().manual_seed(0)
@@ -566,7 +575,7 @@ def test_climber_on_card_matches_cpu(dev):
         env = pt.make("climber", device=d)
         bank = env.generate_bank(R.key(5, env.device), n)
         state, ts = env.reset(bank, R.key(6, env.device), n)
-        gs, lanes = chip_smoke.place_climber_lanes(state.game, n)
+        gs, lanes = game_lanes.place_climber_lanes(state.game, n)
         state = dataclasses.replace(state, game=gs)
         frames, states, rewards = [ts.obs.cpu()], [], []
         g = torch.Generator().manual_seed(0)
@@ -658,7 +667,7 @@ def test_caveflyer_on_card_matches_cpu(dev):
         env = pt.make("caveflyer", device=d)
         bank = env.generate_bank(R.key(5, env.device), n)
         state, ts = env.reset(bank, R.key(6, env.device), n)
-        gs, lanes = chip_smoke.place_caveflyer_lanes(state.game, n)
+        gs, lanes = game_lanes.place_caveflyer_lanes(state.game, n)
         state = dataclasses.replace(state, game=gs)
         frames, states, rewards = [ts.obs.cpu()], [], []
         g = torch.Generator().manual_seed(0)
@@ -764,7 +773,7 @@ def test_jumper_on_card_matches_cpu(dev):
         env = pt.make("jumper", device=d)
         bank = env.generate_bank(R.key(5, env.device), n)
         state, ts = env.reset(bank, R.key(6, env.device), n)
-        gs, lanes = chip_smoke.place_jumper_lanes(state.game, n)
+        gs, lanes = game_lanes.place_jumper_lanes(state.game, n)
         state = dataclasses.replace(state, game=gs)
         frames, states, rewards = [ts.obs.cpu()], [], []
         g = torch.Generator().manual_seed(0)
@@ -806,7 +815,7 @@ def _kind_field_run(game, dev_name, n, steps, place, **cfg):
     gs, lanes = place(state.game, env)
     state = dataclasses.replace(state, game=gs)
     g = torch.Generator().manual_seed(0)
-    actions = chip_smoke.hold_first_action(torch.randint(
+    actions = game_lanes.hold_first_action(torch.randint(
         0, 15, (steps, n), generator=g, dtype=torch.int32), lanes)
     frames, states, rewards = [ts.obs.cpu()], [], []
     for t in range(steps):
@@ -838,7 +847,7 @@ def test_chaser_on_card_matches_cpu(dev, mode):
     under a hatched enemy (death, 0), so that both end and auto-reset on
     the card; 4 steps, every field, reward and obs pixel equal."""
     def place(gs, env):
-        return chip_smoke.place_chaser_lanes(gs)
+        return game_lanes.place_chaser_lanes(gs)
 
     cpu, gpu = (_kind_field_run("chaser", d, 16, 4, place, mode=mode)
                 for d in ("cpu", "cuda"))
@@ -856,7 +865,7 @@ def test_maze_on_card_matches_cpu(dev, mode):
     auto-reset on the card; 4 steps, every field, reward and obs pixel
     equal (memory mode's camera on the map centre, then on the agent)."""
     def place(gs, env):
-        return chip_smoke.place_maze_lanes(gs, env.cfg)
+        return game_lanes.place_maze_lanes(gs, env.cfg)
 
     cpu, gpu = (_kind_field_run("maze", d, 16, 4, place, mode=mode)
                 for d in ("cpu", "cuda"))
@@ -872,9 +881,9 @@ def test_chaser_and_maze_launch_no_kernel(dev):
     the card over reset and 4 steps (chaser's stamp group is off the
     kernel path, `compositor.stamp_kernel_ok`)."""
     runs = [_kind_field_run("chaser", "cuda", 64, 4,
-                            lambda gs, env: chip_smoke.place_chaser_lanes(gs)),
+                            lambda gs, env: game_lanes.place_chaser_lanes(gs)),
             _kind_field_run("maze", "cuda", 64, 4,
-                            lambda gs, env: chip_smoke.place_maze_lanes(
+                            lambda gs, env: game_lanes.place_maze_lanes(
                                 gs, env.cfg), mode="easy")]
     for r in runs:
         assert r[5] == [0, 0, 0, 0]
@@ -884,13 +893,19 @@ def test_chaser_and_maze_launch_no_kernel(dev):
 # The exact renders: scene_phases=0 through B3, and Environment.render
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("game", sorted(chip_smoke.EXACT_GAMES))
-def test_exact_render_on_card_matches_cpu(dev, game):
+# the games of chip_smoke.EXACT_GAMES, named here so that collection
+# imports no root script
+EXACT_GAMES = ("caveflyer", "climber", "coinrun", "jumper")
+
+
+@pytest.mark.parametrize("game", sorted(EXACT_GAMES))
+def test_exact_render_on_card_matches_cpu(dev, smoke, game):
     """make(game, scene_phases=0) on the card against the CPU: bank,
     states, rewards and every obs pixel over reset and 4 steps of 16
     envs; the card launches B3 once per kernel-path stamp group per
     render and no other kernel."""
-    per_render = chip_smoke.EXACT_GAMES[game][3]
+    assert sorted(smoke.EXACT_GAMES) == list(EXACT_GAMES)
+    per_render = smoke.EXACT_GAMES[game][3]
 
     def place(gs, env):
         return gs, []
@@ -901,8 +916,8 @@ def test_exact_render_on_card_matches_cpu(dev, game):
     assert gpu[5] == [0, 0, per_render * 5, 0]  # reset + 4 steps
 
 
-@pytest.mark.parametrize("game", sorted(chip_smoke.EXACT_GAMES))
-def test_stamp_kernel_on_exact_inputs(dev, game):
+@pytest.mark.parametrize("game", sorted(EXACT_GAMES))
+def test_stamp_kernel_on_exact_inputs(dev, smoke, game):
     """B3 on every stamp group of an exact render (64 envs, 4 steps in),
     bitwise equal to its plain version."""
     env = pt.make(game, scene_phases=0)
@@ -913,8 +928,8 @@ def test_stamp_kernel_on_exact_inputs(dev, game):
         state, _ = env.step(bank, state, torch.randint(
             0, 15, (64,), generator=g, device=dev, dtype=torch.int32),
             render=False)
-    calls = chip_smoke.exact_render_calls(env.game, env.cfg, state.game)
-    assert len(calls) == chip_smoke.EXACT_GAMES[game][3]
+    calls = smoke.exact_render_calls(env.game, env.cfg, state.game)
+    assert len(calls) == smoke.EXACT_GAMES[game][3]
     for img, groups in calls:
         got = stk.composite(img, groups)
         want = stk.composite_reference(img, groups)
@@ -922,11 +937,11 @@ def test_stamp_kernel_on_exact_inputs(dev, game):
 
 
 @pytest.mark.parametrize("game", pt.GAMES)
-def test_window_render_on_card_matches_cpu(dev, game):
+def test_window_render_on_card_matches_cpu(dev, smoke, game):
     """Environment.render(state, 512, env_index) on the card for env 0
     and 1: no kernel launched, bitwise equal to the CPU's render of the
     same state."""
-    chip_smoke.window_render_check(game, dev, n=4, steps=4)
+    smoke.window_render_check(game, dev, n=4, steps=4)
 
 
 # ---- the learner-facing surface on the card ----------------------------
@@ -994,7 +1009,7 @@ def test_graph_rollout_reads_a_new_bank(dev):
     assert bool(buf.dones.any())  # the timeout restarts from the new bank
 
 
-def test_fresh_policies_stay_within_one_pool(dev):
+def test_fresh_policies_stay_within_one_pool(dev, smoke):
     """20 rollouts of coinrun at 256 envs, T = 4, each with a fresh
     `functools.partial(policy, params)` and fresh params, as a learner
     binds its weights per call: each captures a graph, equals the eager
@@ -1004,39 +1019,39 @@ def test_fresh_policies_stay_within_one_pool(dev):
     the env keeps GRAPHS_PER_ENV graphs in one pool
     (chip_smoke.fresh_policy_rollouts). With a pool per graph and every
     graph kept, each call reserved one more pool."""
-    chip_smoke.fresh_policy_rollouts()
+    smoke.fresh_policy_rollouts()
 
 
-def test_graphs_sharing_a_pool_replay_interleaved(dev):
+def test_graphs_sharing_a_pool_replay_interleaved(dev, smoke):
     """Graphs A and B, captured in the env's one pool on two banks with
     two policies, replayed A, B, A, B from other keys: each replay equals
     its eager loop bitwise, though B's capture may have placed its
     intermediates where A's were freed (chip_smoke.interleaved_replays)."""
-    chip_smoke.interleaved_replays()
+    smoke.interleaved_replays()
 
 
-@pytest.mark.parametrize("label", list(chip_smoke.MODE_CASES))
-def test_mode_on_card(dev, label):
+@pytest.mark.parametrize("label", list(game_lanes.MODE_CASES))
+def test_mode_on_card(dev, smoke, label):
     """A main path at a config other than the default (hard, memory,
     easy_mode, coinrun's features off) at 256 envs on 64 levels
     (chip_smoke.mode_path): the kernels launched T + 1 times, the placed
     lanes ending and restarting, B1 (and jumper's B3) bitwise equal to
     its plain version on the last step's inputs, the graph rollout equal
     to the eager loop, and 64 envs on the card equal to the CPU."""
-    chip_smoke.mode_path(label, n_levels=64, n_envs=256, replays=1)
+    smoke.mode_path(label, n_levels=64, n_envs=256, replays=1)
 
 
-def test_make_vec_on_card(dev):
+def test_make_vec_on_card(dev, smoke):
     """make_vec in one process on the card: bank, reset and rollout equal
     make's bitwise; metrics equal float64 on the host (chip_smoke.
     vec_phase at 512 envs on 64 levels)."""
-    chip_smoke.vec_phase(n_envs=512, n_levels=64)
+    smoke.vec_phase(n_envs=512, n_levels=64)
 
 
-def test_wave_game_on_card(dev):
+def test_wave_game_on_card(dev, smoke):
     """make(wave_game) on the card equals the CPU over 45 steps
     (chip_smoke.module_phase)."""
-    chip_smoke.module_phase(n_envs=16)
+    smoke.module_phase(n_envs=16)
 
 
 def test_checkpoint_round_trip_on_card(dev, tmp_path):
@@ -1058,7 +1073,7 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
 
 @pytest.mark.parametrize("name", ["coinrun", "bossfight", "climber",
                                   "caveflyer", "jumper"])
-def test_reference_levels_on_card_match_cpu(dev, name, monkeypatch):
+def test_reference_levels_on_card_match_cpu(dev, smoke, name, monkeypatch):
     """Two seeds of the game's reference bank (the parity suite's first
     two) tiled to 256 envs through `dist.rollout` graphs, played by its
     bot or plan (chip_smoke.reference_card): every replica's rewards and
@@ -1066,20 +1081,20 @@ def test_reference_levels_on_card_match_cpu(dev, name, monkeypatch):
     equal the CPU run (chip_smoke.reference_cpu, which the predictor's
     stream equals), and B1 / B3 launch on the games that render with
     them."""
-    cfg, seeds, plan, max_steps, _, kernels = chip_smoke.REFERENCE_CASES[name]
-    monkeypatch.setitem(chip_smoke.REFERENCE_CASES, name,
+    cfg, seeds, plan, max_steps, _, kernels = smoke.REFERENCE_CASES[name]
+    monkeypatch.setitem(smoke.REFERENCE_CASES, name,
                         (cfg, seeds[:2], plan, max_steps, 256, kernels))
-    card = chip_smoke.reference_card(name)
-    cpu = chip_smoke.reference_cpu(name)
-    assert chip_smoke.reference_check(name, card, cpu) >= 256
+    card = smoke.reference_card(name)
+    cpu = smoke.reference_cpu(name)
+    assert smoke.reference_check(name, card, cpu) >= 256
     assert {w for w, c in card["counted"].items() if c} == {
-        chip_smoke.KERNEL_OF[k].__name__ for k in kernels}
+        smoke.KERNEL_OF[k].__name__ for k in kernels}
 
 
 # ---- coinrun's step kernel against the plain torch step ----------------
 
 STEP_CONFIGS = {"default": {}, "easy_mode": {"easy_mode": True},
-                "features off": chip_smoke.FEATURES_OFF,
+                "features off": game_lanes.FEATURES_OFF,
                 "scene_phases=0": {"scene_phases": 0}}
 _INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
                 8: torch.int64}
@@ -1111,7 +1126,7 @@ def test_coinrun_step_kernel_equals_plain_step(dev, config, n):
     env = pt.make("coinrun", **STEP_CONFIGS[config])
     bank = env.generate_bank(R.key(3, dev), 64)
     state, _ = env.reset(bank, R.key(4, dev), n)
-    gs, _ = chip_smoke.place_on_hazards(state.game, n)
+    gs, _ = game_lanes.place_on_hazards(state.game, n)
     state = dataclasses.replace(state, game=gs)
     g = torch.Generator(device=dev)
     g.manual_seed(n)
@@ -1200,7 +1215,7 @@ def test_bossfight_step_kernel_equals_plain_step(dev, mode, n):
     bank = env.generate_bank(R.key(3, dev), 64)
     state, _ = env.reset(bank, R.key(4, dev), n)
     gs = state.game
-    gs = (chip_smoke.place_boss_deaths(gs)[0] if n > 1
+    gs = (game_lanes.place_boss_deaths(gs)[0] if n > 1
           else dataclasses.replace(gs, pos=gs.boss_pos.clone()))
     state = dataclasses.replace(state, game=gs)
     g = torch.Generator(device=dev)
@@ -1282,7 +1297,7 @@ def test_bossfight_rollout_graph_runs_the_step_kernel(dev):
 def test_bossfight_easy_graph_rollout_equals_the_benchmark_reference(dev):
     """A T = 8 `dist.rollout` graph of bossfight in easy mode on 200 levels
     at 4096 envs, from a state 24 calls into the loop with rows 0 and 1
-    ending their episodes (`chip_smoke.place_boss_deaths`) and rows 2-33
+    ending their episodes (`game_lanes.place_boss_deaths`) and rows 2-33
     crowded past the render's 36-bullet cull (tests/bossfight_lanes.py),
     equals the benchmark's plain reference on sampled rows, bit for bit:
     every buffer field and the final state. The sample holds the crafted
@@ -1298,7 +1313,7 @@ def test_bossfight_easy_graph_rollout_equals_the_benchmark_reference(dev):
     for c in range(24):
         state, _ = rollout(vec, state, R.fold_in(R.key(22, dev), c), T)
     played = (lanes.drawn_bullets(state.game) > lanes.CULL).nonzero()[:, 0]
-    game = lanes.crowd(chip_smoke.place_boss_deaths(state.game)[0],
+    game = lanes.crowd(game_lanes.place_boss_deaths(state.game)[0],
                        range(2, 34))
     state = dataclasses.replace(state, game=game)
     drawn = torch.randperm(n, generator=torch.Generator().manual_seed(3))[:64]

@@ -6,6 +6,7 @@ States, rewards and terminations are identical and obs bitwise equal.
 Also: the tree helpers, make's errors, spaces, and that importing the port
 loads no jax."""
 import dataclasses
+import os
 import subprocess
 import sys
 import textwrap
@@ -16,13 +17,17 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import game_lanes
+import jax_reference as JR
 import procgen2_tpu as pg
 import procgen2_tpu_torch as pt
 from procgen2_tpu.utils import tree as jtree
 from procgen2_tpu_torch.games import coinrun as tcoin
 from procgen2_tpu_torch.utils import convert, tree_map
 from procgen2_tpu_torch.utils import tree as ttree
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, T = 8, 5
 
@@ -78,9 +83,9 @@ def place_on_hazards(gs):
 def run():
     """Both envs from the same keys; lanes placed on hazards after reset
     (carried across with utils/convert); T steps with the same actions."""
-    jenv = pg.make("coinrun")
+    jenv = JR.env("coinrun")
     tenv = pt.make("coinrun", device="cpu")
-    jbank = jenv.generate_bank(jax.random.key(7), num_levels=N)
+    jbank = JR.bank("coinrun", n=N)
     tbank = tenv.generate_bank(pt.random.key(7), N)
     jst, jts = jenv.reset(jbank, jax.random.key(8), num_envs=N)
     tst, tts = tenv.reset(tbank, pt.random.key(8), N)
@@ -135,11 +140,11 @@ def test_auto_reset_fired(run):
 
 
 def test_chip_smoke_places_the_same_lanes(run):
-    """chip_smoke.py's torch placement, which makes auto-reset fire on the
+    """game_lanes' torch placement, which makes auto-reset fire on the
     card, puts the lanes where this file's numpy placement does."""
     jst, _, tst, _ = run["reset"]
     want = place_on_hazards(jst.game)
-    got, lanes = chip_smoke.place_on_hazards(tst.game, N)
+    got, lanes = game_lanes.place_on_hazards(tst.game, N)
     assert lanes[0] == 0 and len(lanes) >= 2
     assert_same_tree(want.pos, got.pos)
     assert_same_tree(want.vel, got.vel)
@@ -243,7 +248,7 @@ def test_port_imports_no_jax():
     (scene_phases=0),
     `compositor.stamps_from_pixel_bank`, `scene_kernel.scene`, `make_vec`
     and a rollout on it, `make` of the example wave game module, the
-    bench, the Gym adapter, a checkpoint, a guarded step, a bank of the
+    bench CLI, the Gym adapter, a checkpoint, a guarded step, a bank of the
     reference's own levels (the mt19937 oracle), a bot and the
     predictors, the PNG overlay, the difference and fixture tools (a
     fixture recorded and replayed), the CEnv loader, BossfightRefSim, the
@@ -289,10 +294,9 @@ def test_port_imports_no_jax():
         rgbp, a = compositor.stamps_from_pixel_bank(bank_, var, r0, c0,
                                                     alives=scale)
         assert rgbp.shape == (2, 3, 64, 64) and a.shape == (2, 1, 64, 64)
-        # the learner-facing surface: make_vec, rollout, bench, Gym,
+        # the learner-facing surface: make_vec, rollout, bench_cli, Gym,
         # checkpoint, guards, make(module)
         import tempfile
-        from procgen2_tpu_torch import bench
         from procgen2_tpu_torch.dist import make_vec, rollout
         from procgen2_tpu_torch.examples import wave_game
         from procgen2_tpu_torch.tools import bench_cli
@@ -317,7 +321,6 @@ def test_port_imports_no_jax():
             checkpoint.restore(d + "/ck.npz", state=state)
         guards.checked_step(env)(bank, state,
                                  torch.zeros(2, dtype=torch.int32))
-        assert callable(bench.main)
         # the overlay, the difference and fixture tools, the loader, the
         # viewer, boruvka_maze, resolve_from_rows, the compositor helpers
         from procgen2_tpu_torch.gen.kruskal import boruvka_maze
@@ -387,7 +390,9 @@ def test_port_imports_no_jax():
         print("ok")
     """)
     root = str(__import__("pathlib").Path(__file__).resolve().parents[1])
+    # one torch thread in the subprocess too, as in the test process
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")

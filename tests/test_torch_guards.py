@@ -13,6 +13,9 @@ import torch
 import procgen2_tpu_torch as pt
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.utils import guards
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_checked_raises_on_nan_in_an_intermediate():

@@ -9,6 +9,9 @@ import pytest
 
 import procgen2_tpu as pg
 import procgen2_tpu_torch as pt
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 STEPS = 30
 

@@ -8,7 +8,7 @@ bitwise: f32 compared as int32 views, everything else equal.
   beside walls, on the ground and in the air, dust of every age);
 * `Environment.step` with lane 0 on its carrot (+10) and a lane on a
   spike (death, 0), both of which end and auto-reset, states, rewards and
-  obs at every step (chip_smoke.py's placement);
+  obs at every step (game_lanes' placement);
 * `observe_batch` against the JAX package's render on its TPU path: the
   scene kernel `scene_tpu_raw` and the stamp kernel `composite_tpu` in
   interpret mode, which B1 and B3 replace; on random states and on states
@@ -27,19 +27,20 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import game_lanes
+import jax_reference as JR
 from jax_capture import render_inputs
-import procgen2_tpu as pg
 import procgen2_tpu_torch as pt
 from procgen2_tpu.games import jumper as jjump
-from procgen2_tpu.render import compositor as jC
-from procgen2_tpu.render import scene_kernel as jsk
-from procgen2_tpu.render import stamp_kernel as jstk
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import jumper as tjump
 from procgen2_tpu_torch.render import compositor as tC
 from procgen2_tpu_torch.utils import convert
 import render_parity as RP
+import texel_edges
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NUM_LEVELS, N, T = 16, 8, 8
 LEVEL_FIELDS = [f.name for f in dataclasses.fields(tjump.Level)]
@@ -82,17 +83,6 @@ def _keys(n, seed=7):
                                                     torch.arange(n)))
 
 
-def _jax_kernels(mp):
-    """Put the JAX package's render on its TPU path: `scene_tpu_raw` and
-    `composite_tpu`, run in interpret mode (a `pytest.MonkeyPatch` mp)."""
-    scene, composite = jsk.scene_tpu_raw, jstk.composite_tpu
-    mp.setattr(jC, "_use_stamp_kernel", lambda: True)
-    mp.setattr(jsk, "scene_tpu_raw",
-               lambda *a, **k: scene(*a, **{**k, "interpret": True}))
-    mp.setattr(jstk, "composite_tpu",
-               lambda *a, **k: composite(*a, **{**k, "interpret": True}))
-
-
 def _to_jax_state(st):
     return jax.tree.map(jnp.asarray,
                         st.replace(rng=jax.random.wrap_key_data(st.rng)))
@@ -100,10 +90,10 @@ def _to_jax_state(st):
 
 @pytest.fixture(scope="module")
 def jax_env():
-    """The JAX Environment and its bank of NUM_LEVELS levels, level i keyed
-    fold_in(key(7), i) as `_keys` keys them."""
-    jenv = pg.make("jumper")
-    return jenv, jenv.generate_bank(jax.random.key(7), num_levels=NUM_LEVELS)
+    """The JAX Environment (its render on the TPU path: B1's and B3's
+    kernels in interpret mode) and its bank of NUM_LEVELS levels, level i
+    keyed fold_in(key(7), i) as `_keys` keys them."""
+    return JR.env("jumper", tpu=True), JR.bank("jumper", n=NUM_LEVELS)
 
 
 @pytest.fixture(scope="module")
@@ -154,9 +144,8 @@ def test_generate_covers_the_branches(banks):
 
 @pytest.mark.parametrize("mode,n", [("hard", 8), ("memory", 4)])
 def test_generate_other_modes(mode, n):
-    jk, tk = _keys(n, seed=11)
-    want = np_tree(jax.jit(jax.vmap(functools.partial(
-        jjump.generate, jjump.Config(mode=mode))))(jk))
+    _, tk = _keys(n, seed=11)
+    want = np_tree(JR.bank("jumper", (("mode", mode),), seed=11, n=n))
     got = tjump.generate(tjump.Config(mode=mode), tk)
     same_tree(want, got)
     D = tjump.Config(mode=mode).world_dim
@@ -262,7 +251,7 @@ def trajectories(banks):
     st = random_states(jl, 0, n=NUM_LEVELS)
     actions = np.random.default_rng(1).integers(
         0, 15, (T, NUM_LEVELS)).astype(np.int32)
-    jstep = jax.jit(jax.vmap(functools.partial(jjump.step, jjump.Config())))
+    jstep = JR.vmapped("jumper", "step")
     jst = _to_jax_state(st)
     tst = convert.state(tjump, st, "cpu")
     out = []
@@ -305,12 +294,10 @@ def test_steps_cover_the_physics(trajectories):
 @pytest.fixture(scope="module")
 def run(jax_env):
     """Both Environments from the same keys; after reset the carrot lane
-    and the spike lane are placed with chip_smoke's placement (carried
+    and the spike lane are placed with game_lanes' placement (carried
     across with utils/convert); T steps with the same actions, rendered
     (the JAX render on its TPU path)."""
-    with pytest.MonkeyPatch.context() as mp:
-        _jax_kernels(mp)
-        return _run(*jax_env)
+    return _run(*jax_env)
 
 
 def _run(jenv, jbank):
@@ -320,7 +307,7 @@ def _run(jenv, jbank):
     tst, tts = tenv.reset(tbank, pt.random.key(8), N)
     reset = (np_tree(jst), np.asarray(jts.obs), tst, tts)
     start = np_tree(jst)
-    game, lanes = chip_smoke.place_jumper_lanes(
+    game, lanes = game_lanes.place_jumper_lanes(
         convert.state(tjump, start.game, "cpu"), N)
     start = start.replace(game=start.game.replace(
         pos=game.pos.numpy(), vel=game.vel.numpy()))
@@ -377,13 +364,13 @@ def test_placed_lanes_end_and_restart(run):
 
 
 def test_chip_smoke_places_the_same_lanes(run):
-    """chip_smoke.py's placement picks its lanes from the first lanes
-    only: on the first 8 of 16 envs it places the same lanes at the same
-    positions as on a batch of 8, so the card's run and the CPU re-run of
-    its first 8 envs start alike."""
+    """game_lanes' placement (chip_smoke.py's) picks its lanes from the
+    first lanes only: on the first 8 of 16 envs it places the same lanes at
+    the same positions as on a batch of 8, so the card's run and the CPU
+    re-run of its first 8 envs start alike."""
     env = pt.make("jumper", device="cpu")
     bank = env.generate_bank(pt.random.key(7), NUM_LEVELS)
-    placed = [chip_smoke.place_jumper_lanes(
+    placed = [game_lanes.place_jumper_lanes(
         env.reset(bank, pt.random.key(8), n)[0].game, N) for n in (2 * N, N)]
     (big, big_lanes), (small, small_lanes) = placed
     assert big_lanes == small_lanes == run["lanes"]
@@ -398,7 +385,7 @@ def test_chip_smoke_lane_placement_needs_a_spike(run):
     lv = dataclasses.replace(
         gs.level, spike_grid=torch.zeros_like(gs.level.spike_grid))
     with pytest.raises(ValueError, match="no spike"):
-        chip_smoke.place_jumper_lanes(dataclasses.replace(gs, level=lv), N)
+        game_lanes.place_jumper_lanes(dataclasses.replace(gs, level=lv), N)
 
 
 # ---------------------------------------------------------------------------
@@ -408,10 +395,8 @@ def test_chip_smoke_lane_placement_needs_a_spike(run):
 @pytest.fixture(scope="module")
 def jax_observe():
     """The JAX package's observe_batch on its TPU path, jitted once."""
-    with pytest.MonkeyPatch.context() as mp:
-        _jax_kernels(mp)
-        fn = jax.jit(functools.partial(jjump.observe_batch, jjump.Config()))
-        yield lambda st: np.asarray(fn(_to_jax_state(st)))
+    fn = JR.observe_batch("jumper")
+    return lambda st: np.asarray(fn(_to_jax_state(st)))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -717,3 +702,11 @@ def test_observe_matches_jax_near_texel_edges(exact):
     layer of jumper's renders computes its camera coords fused
     (c * f32(1/4.8) + cam, one rounding); the unfused form fails here."""
     RP.check_near_edges("jumper", 0.5, tjump.PPU, exact=exact)
+
+
+@pytest.mark.parametrize("case", ["jumper_needle"])
+def test_rotated_sprites_match_jax_on_texel_edges(case):
+    """The rotated compass needle with a pixel on a texel edge (within an ulp) in
+    every env: the port's observe equals the JAX package's, bitwise
+    (tests/texel_edges.py, on this file's rollout programs)."""
+    texel_edges.check(case)

@@ -23,6 +23,9 @@ import torch
 from procgen2_tpu.gen import kruskal as jk
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.gen import kruskal as tk
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _keys(n, seed):

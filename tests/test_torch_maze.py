@@ -8,7 +8,7 @@ bitwise: f32 compared as int32 views, everything else equal.
   cells over at the grid's edge, goals reached and timeouts;
 * `Environment.step` with lane 0 on its goal (+10) and lane 1 at its
   last step (terminated with 0), both of which end and auto-reset
-  (chip_smoke.py's placement), states, rewards and obs at every step;
+  (game_lanes' placement), states, rewards and obs at every step;
 * `observe_batch` in every mode, with the mouse on the cheese (kinds 5
   and 6) and memory mode's camera at t = 0 and t > 0;
 * the render's constant tables (tile, texel, cheese and background
@@ -24,9 +24,9 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import game_lanes
+import jax_reference as JR
 from jax_capture import onehot_inputs
-import procgen2_tpu as pg
 import procgen2_tpu_torch as pt
 from procgen2_tpu.games import maze as jmaze
 from procgen2_tpu_torch import random as R
@@ -34,6 +34,9 @@ from procgen2_tpu_torch.games import maze as tmaze
 from procgen2_tpu_torch.render import compositor as tC
 from procgen2_tpu_torch.utils import convert
 import render_parity as RP
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NUM_LEVELS, N, T = 16, 8, 8
 MODES = ("easy", "hard", "memory")
@@ -89,8 +92,7 @@ def banks():
     jk, tk = _keys(NUM_LEVELS)
     out = {}
     for mode in MODES:
-        want = np_tree(jax.jit(jax.vmap(functools.partial(
-            jmaze.generate, jmaze.Config(mode=mode))))(jk))
+        want = np_tree(JR.vmapped("maze", "generate", (("mode", mode),))(jk))
         out[mode] = (want, tmaze.generate(tmaze.Config(mode=mode), tk))
     return out
 
@@ -177,12 +179,12 @@ def trajectories(banks):
         cfg = jmaze.Config(mode=mode)
         st = random_states(banks[mode][0], 0 if mode == "easy" else 1,
                            timeout=T + 2)
-        jcfg = jmaze.Config(mode=mode, timeout=T + 2)
         tcfg = tmaze.Config(mode=mode, timeout=T + 2)
         assert cfg.world_dim == tcfg.world_dim
         actions = np.random.default_rng(2).integers(
             0, 15, (T, NUM_LEVELS)).astype(np.int32)
-        jstep = jax.jit(jax.vmap(functools.partial(jmaze.step, jcfg)))
+        jstep = JR.vmapped("maze", "step", (("mode", mode),
+                                             ("timeout", T + 2)))
         jst = _to_jax_state(st)
         tst = convert.state(tmaze, st, "cpu")
         for t in range(T):
@@ -233,17 +235,17 @@ def test_steps_cover_the_moves(trajectories):
 def run():
     """Both Environments in easy mode (the bench's) from the same keys;
     after reset the goal lane and the timeout lane are placed with
-    chip_smoke's placement (carried across with utils/convert); T steps
+    game_lanes' placement (carried across with utils/convert); T steps
     with the same actions, the placed lanes' first action 4 (no move)."""
-    jenv = pg.make("maze", mode="easy")
+    jenv = JR.env("maze", (("mode", "easy"),))
     tenv = pt.make("maze", device="cpu", mode="easy")
-    jbank = jenv.generate_bank(jax.random.key(7), num_levels=NUM_LEVELS)
+    jbank = JR.bank("maze", (("mode", "easy"),), n=NUM_LEVELS)
     tbank = tenv.generate_bank(pt.random.key(7), NUM_LEVELS)
     jst, jts = jenv.reset(jbank, jax.random.key(8), num_envs=N)
     tst, tts = tenv.reset(tbank, pt.random.key(8), N)
     reset = (np_tree(jst), np.asarray(jts.obs), tst, tts)
     start = np_tree(jst)
-    game, lanes = chip_smoke.place_maze_lanes(
+    game, lanes = game_lanes.place_maze_lanes(
         convert.state(tmaze, start.game, "cpu"), tenv.cfg)
     start = start.replace(game=start.game.replace(
         pos=game.pos.numpy(), t=game.t.numpy()))
@@ -251,7 +253,7 @@ def run():
         rng=jax.random.wrap_key_data(start.rng),
         game=start.game.replace(rng=jax.random.wrap_key_data(start.game.rng))))
     tst = convert.env_state(tmaze, start, "cpu")
-    actions = chip_smoke.hold_first_action(torch.from_numpy(
+    actions = game_lanes.hold_first_action(torch.from_numpy(
         np.random.default_rng(3).integers(0, 15, (T, N)).astype(np.int32)),
         lanes).numpy()
     steps = []
@@ -327,11 +329,11 @@ def test_observe_batch_matches_jax(banks, mode):
     """observe_batch against the JAX package's jitted render, with the
     mouse facing both ways on the cheese and off it; memory mode at t > 0
     (the camera on the agent) and t = 0 (the map centre)."""
-    cfg_j, cfg_t = jmaze.Config(mode=mode), tmaze.Config(mode=mode)
+    cfg_t = tmaze.Config(mode=mode)
     st = render_states(banks[mode][0], 5)
     if mode == "memory":
         st = st.replace(t=np.where(np.arange(N) < 3, 0, st.t).astype(np.int32))
-    want = np.asarray(jax.jit(functools.partial(jmaze.observe_batch, cfg_j))(
+    want = np.asarray(JR.observe_batch("maze", (("mode", mode),), tpu=False)(
         _to_jax_state(st)))
     tst = convert.state(tmaze, st, "cpu")
     got = tmaze.observe_batch(cfg_t, tst)

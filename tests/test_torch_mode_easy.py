@@ -8,6 +8,9 @@ import pytest
 from mode_parity import env_run
 from mode_parity import (test_bank_and_reset_match,  # noqa: F401
                          test_placed_lanes_end_and_restart, test_step_matches)
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module", params=["climber easy", "coinrun easy"])

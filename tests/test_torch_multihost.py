@@ -11,9 +11,13 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 import torch_multihost_worker as W
 from procgen2_tpu_torch.dist import make_vec
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

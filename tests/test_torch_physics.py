@@ -11,6 +11,9 @@ from procgen2_tpu.physics import aabb as jaabb
 from procgen2_tpu.physics import tiles as jt
 from procgen2_tpu_torch.physics import aabb as taabb
 from procgen2_tpu_torch.physics import tiles as tt
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, H, W = 48, 16, 16
 OOB = 2

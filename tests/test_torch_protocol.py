@@ -24,6 +24,9 @@ from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.core.env import Environment
 from procgen2_tpu_torch.examples import wave_game
 from torch_parity import np_tree, same, same_tree
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PROTOCOL = ("Config", "Level", "State", "generate", "reset", "step",
             "observe_batch", "observe", "obs_space", "action_space")

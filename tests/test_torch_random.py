@@ -8,6 +8,9 @@ import pytest
 import torch
 
 from procgen2_tpu_torch import random as R
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def words(k):

@@ -41,6 +41,9 @@ from procgen2_tpu_torch.tools import bots, predict
 from procgen2_tpu_torch.tools.reference_levels import (host_level,
                                                        reference_bank)
 from test_png_assets import REAL_ASSETS
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 f32 = np.float32
 REPO = Path(__file__).resolve().parent.parent
@@ -153,7 +156,7 @@ COINRUN_FATAL_SEEDS = [3, 6, 8, 10, 15, 16, 20, 23, 24, 25, 28, 29]
 def test_coinrun_reference_binary_death_parity(ref_libs):
     """Blind jump-right runs die in the compiled coinrun engine at the
     EXACT step the CoinrunSim predictor (and therefore the port's engine,
-    tests/test_torch_parity_fatal.py) computes — full platformer physics,
+    tests/test_torch_parity.py) computes — full platformer physics,
     mob patrols and hazard geometry validated against the real C++."""
     bank = reference_bank("coinrun", COINRUN_FATAL_SEEDS, "cpu")
     env = _ref_env(ref_libs / "ref_coinrun.so", COINRUN_FATAL_SEEDS[0])

@@ -12,10 +12,14 @@ import pytest
 
 from procgen2_tpu.tools import rng_oracle as J
 from procgen2_tpu_torch.tools import rng_oracle as O
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
-pytestmark = pytest.mark.skipif(
-    shutil.which("g++") is None, reason="no C++ toolchain"
-)
+pytestmark = [
+    pytest.mark.skipif(
+        shutil.which("g++") is None, reason="no C++ toolchain"
+    ),
+    pytest.mark.usefixtures("one_torch_thread"),
+]
 
 SEEDS = range(20)
 

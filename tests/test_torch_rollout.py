@@ -18,6 +18,9 @@ from procgen2_tpu.dist import rollout as jrollout
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.dist import RolloutBuffer, rollout
 from torch_parity import np_tree, same, same_tree
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NUM_LEVELS, N, T = 8, 8, 6
 FIELDS = ("obs", "actions", "rewards", "dones", "ep_returns", "ep_lengths")

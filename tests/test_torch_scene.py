@@ -9,7 +9,7 @@ bitwise:
     random expanded fields shaped like tests/test_scene_kernel.py's, and
     its joint phase clamped into the tile bank; against `scene_tpu` on a
     kind field of fractions, -0.0, negative kinds, kinds beyond int8,
-    infinities and NaN (chip_smoke.edge_field).
+    infinities and NaN (kernel_inputs.edge_field).
 
 The CUDA kernel itself cannot run here; tests/test_torch_cuda.py and
 chip_smoke.py hold it against this plain version on the card."""
@@ -21,13 +21,17 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+from benchmark.roofline import scene_raw
+import kernel_inputs
 from procgen2_tpu.games import coinrun as jcoin
 from procgen2_tpu.render import phases as jphases
 from procgen2_tpu.render import scene_kernel as jsk
 from procgen2_tpu_torch.games import coinrun as tcoin
 from procgen2_tpu_torch.render import scene_kernel as tsk
 from procgen2_tpu_torch.utils import convert
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 OBS, QP = 64, 4
 
@@ -120,9 +124,10 @@ def test_other_devices_raise():
 
 
 def test_chip_smoke_scene_work_counts_each_read_once():
-    """chip_smoke.py's bound of the scene kernel counts the elements the
-    kernel reads, each once, and the blends it does, as a walk over every
-    pixel of the kernel's reads (csrc/scene_kernel.cu) finds them."""
+    """chip_smoke.py's bound of the scene kernel (`scene_work`, the
+    benchmark's roofline/scene_raw.work) counts the elements the kernel
+    reads, each once, and the blends it does, as a walk over every pixel
+    of the kernel's reads (csrc/scene_kernel.cu) finds them."""
     args = _random_raw(4, N=2)
     (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
      kinds, themes, groups, obs, qp, pad) = args
@@ -157,9 +162,9 @@ def test_chip_smoke_scene_work_counts_each_read_once():
     want_bytes = (len(cells) + 3 * 2 * len(bgs) + 4 * 2 * len(texels)
                   + small + N * 3 * obs * obs * 2)
     targs = [_to_torch(a) for a in args[:10]]
-    got = chip_smoke.scene_work((*targs, kinds, themes, tgroups, obs, qp, pad))
-    assert got == (want_bytes, chip_smoke.TILE_OPS * tiles
-                   + chip_smoke.STAMP_OPS * blends)
+    got = scene_raw.work((*targs, kinds, themes, tgroups, obs, qp, pad))
+    assert got == (want_bytes, scene_raw.TILE_OPS * tiles
+                   + scene_raw.STAMP_OPS * blends)
     # the windows read a small part of the padded grid
     assert len(cells) < gridp.size // 2
 
@@ -309,15 +314,15 @@ def _torch_to_jax(x):
     return jnp.asarray(x.numpy())
 
 
-@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+@pytest.mark.parametrize("case", kernel_inputs.EDGE_CASES)
 def test_reference_matches_pallas_on_edge_scene(case):
-    """The card tests' yardstick on B1's edge cases (chip_smoke.edge_scene:
+    """The card tests' yardstick on B1's edge cases (kernel_inputs.edge_scene:
     themed and unthemed tile entries for every theme, a negative kind and
     kind 0 outside the grid, with the stamp groups of
-    chip_smoke.edge_groups: K = 300, 40 live slots stacked on one pixel
+    kernel_inputs.edge_groups: K = 300, 40 live slots stacked on one pixel
     between dead ones, P = 40 at every offset), at 4 envs: the plain
     version bitwise equal to the Pallas kernel in interpret mode."""
-    args = chip_smoke.edge_scene(case, 4, "cpu", seed=5)
+    args = kernel_inputs.edge_scene(case, 4, "cpu", seed=5)
     (gridp, ty0, tx0, jy, jx, bg_i, theme, bg_bank, tr_tab, tile_bank,
      kinds, themes, groups, obs, qp, pad) = args
     want = jsk.scene_tpu_raw(
@@ -332,19 +337,19 @@ def test_reference_matches_pallas_on_edge_scene(case):
 
 
 def test_edge_entries_cover_every_theme():
-    """chip_smoke.edge_entries: a themed entry of kinds 1 and 2 for every
+    """kernel_inputs.edge_entries: a themed entry of kinds 1 and 2 for every
     theme, unthemed kind 1 after them (two blends in order on one cell),
     and unthemed kinds 3, -5 and 0; every env theme in [-1, 6] occurs
     among 64 envs of edge_scene."""
-    kinds, themes = chip_smoke.edge_entries()
+    kinds, themes = kernel_inputs.edge_entries()
     assert len(kinds) <= tsk._MAX_ENTRIES
-    for t in range(chip_smoke.EDGE_THEMES):
+    for t in range(kernel_inputs.EDGE_THEMES):
         assert {k for k, th in zip(kinds, themes) if th == t} == {1, 2}
     unthemed = [k for k, th in zip(kinds, themes) if th < 0]
     assert unthemed == [1, 3, -5, 0]
     assert kinds.index(1) < len(kinds) - 4  # themed kind 1 first
-    theme = chip_smoke.edge_scene("stacked", 64, "cpu")[6]
-    assert set(theme.tolist()) == set(range(-1, chip_smoke.EDGE_THEMES + 1))
+    theme = kernel_inputs.edge_scene("stacked", 64, "cpu")[6]
+    assert set(theme.tolist()) == set(range(-1, kernel_inputs.EDGE_THEMES + 1))
 
 
 def test_scene_reference_matches_pallas_on_odd_kinds():
@@ -356,7 +361,7 @@ def test_scene_reference_matches_pallas_on_odd_kinds():
     first: the Pallas kernel does not clamp a phase of -1 (an index out
     of its block), where the port and the JAX package's mirror clamp
     (test_scene_clamps_the_joint_phase)."""
-    X, p, theme, tb, kinds, themes, groups, obs = chip_smoke.edge_field(
+    X, p, theme, tb, kinds, themes, groups, obs = kernel_inputs.edge_field(
         4, "cpu", seed=6)
     p = p.clamp(0, tb.shape[0] - 1)
     want = jsk.scene_tpu(
@@ -370,18 +375,18 @@ def test_scene_reference_matches_pallas_on_odd_kinds():
 
 
 def test_edge_field_reaches_every_kind_path():
-    """What chip_smoke.edge_field promises B5's kind lookup, in every one
+    """What kernel_inputs.edge_field promises B5's kind lookup, in every one
     of 4 envs: integer kinds in int8 (the table; -0.0 among them, and a
     negative kind with an entry), fractions, infinities and a NaN (the
     comparison with every entry, matching none), and integer kinds beyond
     int8 matching their entries; and a tile blend of a themed entry (env
     theme in range) and of an unthemed one, over 64 envs every env theme
     in [-1, EDGE_THEMES]."""
-    X, p, theme, tb, kinds, themes, groups, obs = chip_smoke.edge_field(
+    X, p, theme, tb, kinds, themes, groups, obs = kernel_inputs.edge_field(
         4, "cpu")
     assert len(kinds) <= tsk._MAX_ENTRIES
-    assert set(chip_smoke.BIG_KINDS) <= set(kinds)
-    assert all(not -128 <= k <= 127 for k in chip_smoke.BIG_KINDS)
+    assert set(kernel_inputs.BIG_KINDS) <= set(kinds)
+    assert all(not -128 <= k <= 127 for k in kernel_inputs.BIG_KINDS)
     G = X[:, 0].float().reshape(4, -1)
     bits = G.view(torch.int32)
     table = (G == G.round()) & (G.abs() <= 128) & (G >= -128) & (G <= 127)
@@ -391,9 +396,9 @@ def test_edge_field_reaches_every_kind_path():
         assert (t & (g == -5)).any() and (t & (g == 1)).any()
         assert ((g != g.round()) & g.isfinite()).any()  # fractions
         assert g.isinf().any() and g.isnan().any()
-        for k in chip_smoke.BIG_KINDS:
+        for k in kernel_inputs.BIG_KINDS:
             assert (g == k).any()
-    all_theme = chip_smoke.edge_field(64, "cpu")[2]
+    all_theme = kernel_inputs.edge_field(64, "cpu")[2]
     assert set(all_theme.tolist()) == set(
-        range(-1, chip_smoke.EDGE_THEMES + 1))
-    assert ((theme >= 0) & (theme < chip_smoke.EDGE_THEMES)).any()
+        range(-1, kernel_inputs.EDGE_THEMES + 1))
+    assert ((theme >= 0) & (theme < kernel_inputs.EDGE_THEMES)).any()

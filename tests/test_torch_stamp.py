@@ -27,16 +27,19 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import kernel_inputs
 from procgen2_tpu.render import compositor as jC
 from procgen2_tpu.render import stamp_kernel as jsk
 from procgen2_tpu_torch.games import bossfight as tboss
 from procgen2_tpu_torch.render import compositor as tC
 from procgen2_tpu_torch.render import stamp_kernel as tsk
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 OBS, N = 64, 8
 BOSS_GROUPS = ("barbb", "bosshield", "dmg", "abship")  # in painter order
-shapes = chip_smoke.bossfight_group_shapes  # (V, P, K) of each
+shapes = kernel_inputs.bossfight_group_shapes  # (V, P, K) of each
 
 
 def _bf16(a):
@@ -363,26 +366,26 @@ def _pallas_groups(img, groups):
     return out
 
 
-@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+@pytest.mark.parametrize("case", kernel_inputs.EDGE_CASES)
 def test_reference_matches_pallas_on_edge_slots(case):
     """The card tests' yardstick on the edge cases of B3's staged slot
-    tables (chip_smoke.edge_groups: K = 300, 40 live slots stacked on one
+    tables (kernel_inputs.edge_groups: K = 300, 40 live slots stacked on one
     pixel between dead ones, P = 40 at every offset), at 4 envs: the plain
     version bitwise equal to the Pallas kernel, one group after another."""
-    img, groups = chip_smoke.edge_stamps(case, 4, "cpu", seed=3)
+    img, groups = kernel_inputs.edge_stamps(case, 4, "cpu", seed=3)
     want = _pallas_groups(img, groups)
     got = tsk.composite_reference(img, groups)
     np.testing.assert_array_equal(bits(want), bits(got))
     assert not torch.equal(got, img)  # the stamps drew something
 
 
-@pytest.mark.parametrize("case", chip_smoke.EDGE_CASES)
+@pytest.mark.parametrize("case", kernel_inputs.EDGE_CASES)
 def test_stamps_reference_matches_pallas_on_edge_slots(case):
     """The card tests' yardstick for B4 on the edge cases of its staged
-    slot table (chip_smoke.edge_sum_group: K = 300, 40 live slots stacked
+    slot table (kernel_inputs.edge_sum_group: K = 300, 40 live slots stacked
     on one pixel in one group between dead ones, P = 40 at every offset),
     at 4 envs: the plain version bitwise equal to the Pallas kernel."""
-    group = chip_smoke.edge_sum_group(case, 4, "cpu", seed=7)
+    group = kernel_inputs.edge_sum_group(case, 4, "cpu", seed=7)
     want_rgb, want_a = pallas_stamps(group)
     got_rgb, got_a = tsk.stamps_reference(*group, OBS)
     np.testing.assert_array_equal(bits(want_rgb), bits(got_rgb))
@@ -406,13 +409,13 @@ def test_edge_groups_reach_the_staging_edges():
     dead slots between them; P = 40 slots at every row and column offset
     from -P-1 to obs+1 in every env."""
     n = 4
-    (k300,) = chip_smoke.edge_groups("k300", n, "cpu")
+    (k300,) = kernel_inputs.edge_groups("k300", n, "cpu")
     assert k300[1].shape == (n, 300)
     stack = k300[2][:, 250:262] != 0
     assert stack.all() and (k300[1][:, 250:262] >= 0).all()
     assert _live_cover(k300, 23, 33)[:, 250:262].sum(1).min() >= 2
 
-    stacked = chip_smoke.edge_groups("stacked", n, "cpu")
+    stacked = kernel_inputs.edge_groups("stacked", n, "cpu")
     live = torch.cat([_live_cover(g, 29, 35) for g in stacked], dim=1)
     assert (live.sum(1) == 40).all()
     for g in stacked:
@@ -425,7 +428,7 @@ def test_edge_groups_reach_the_staging_edges():
                 any_pixel |= _live_cover(g, r, c)[:, 1::2]
         assert not any_pixel.any()
 
-    (p40,) = chip_smoke.edge_groups("p40", n, "cpu")
+    (p40,) = kernel_inputs.edge_groups("p40", n, "cpu")
     bank, var, scale, r0, c0 = p40
     assert bank.shape[-1] == 40
     offsets = set(range(-41, OBS + 2))
@@ -441,11 +444,11 @@ def test_edge_sum_groups_reach_the_staging_edges():
     (29, 35), the odd slots between them dead everywhere; P = 40 at every
     offset."""
     n = 4
-    k300 = chip_smoke.edge_sum_group("k300", n, "cpu")
+    k300 = kernel_inputs.edge_sum_group("k300", n, "cpu")
     assert k300[1].shape == (n, 300)
     assert _live_cover(k300, 23, 33)[:, 250:262].all()  # across slot 256
 
-    stacked = chip_smoke.edge_sum_group("stacked", n, "cpu")
+    stacked = kernel_inputs.edge_sum_group("stacked", n, "cpu")
     assert stacked[1].shape == (n, 80)
     cover = _live_cover(stacked, 29, 35)
     assert (cover.sum(1) == 40).all()
@@ -456,7 +459,7 @@ def test_edge_sum_groups_reach_the_staging_edges():
             any_pixel |= _live_cover(stacked, r, c)[:, 1::2]
     assert not any_pixel.any()
 
-    p40 = chip_smoke.edge_sum_group("p40", n, "cpu")
+    p40 = kernel_inputs.edge_sum_group("p40", n, "cpu")
     assert p40[0].shape[-1] == 40 and (p40[2] != 0).all()
     for e in range(n):
         assert set(p40[3][e].tolist()) == set(range(-41, OBS + 2))

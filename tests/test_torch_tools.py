@@ -6,6 +6,9 @@ not driven here."""
 import itertools
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 class KS(dict):

@@ -24,6 +24,9 @@ from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.dist import make_vec, rollout
 from procgen2_tpu_torch.dist.rollout import graphs
 from procgen2_tpu_torch.utils import trace, tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, T, LEVELS = 4, 2, 3
 GAMES = {"maze": {"mode": "easy"}, "coinrun": {"easy_mode": True}}

@@ -36,6 +36,9 @@ import pytest
 import torch
 
 from procgen2_tpu_torch import trig
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _around(v, n, rng):

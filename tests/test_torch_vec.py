@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import game_lanes
 import procgen2_tpu_torch as pt
 from procgen2_tpu.dist import make_vec as jmake_vec
 from procgen2_tpu.dist import rollout as jrollout
@@ -24,6 +24,9 @@ from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.dist import (ShardedEnv, init_multihost, local_slice,
                                      make_vec, rollout, vec)
 from torch_parity import np_tree, same, same_tree
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, LEVELS, STEPS = 16, 8, 3
 FIELDS = ("obs", "actions", "rewards", "dones", "ep_returns", "ep_lengths")
@@ -45,7 +48,7 @@ def runs():
     jst, jts = jv.reset(jax.random.key(0))
     tst, tts = tv.reset(R.key(0))
     reset = (np_tree(jst), np.asarray(jts.obs), tst, tts)
-    gs, lanes = chip_smoke.place_maze_lanes(tst.game, tv.env.cfg)
+    gs, lanes = game_lanes.place_maze_lanes(tst.game, tv.env.cfg)
     tst = dataclasses.replace(tst, game=gs)
     start = np_tree(jst)
     jst = _to_jax(start.replace(game=start.game.replace(

@@ -21,12 +21,16 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from procgen2_tpu.games import bossfight as jb
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import bossfight as tb
 from procgen2_tpu_torch.utils import convert
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _words(ks):
