@@ -23,8 +23,9 @@ Phases (any failure raises, so the exit code is non-zero and the final
   1. device: a CUDA card must be visible; prints nvidia-smi's name and
      power limit; make("coinrun") (on the card by default);
   2. build: builds the scene kernels (B1, B5), the stamp kernels (B3,
-     B4) and coinrun's step kernel from their three sources (nvcc, sm_90a,
-     one compiler process each, started together) and prints their times
+     B4), coinrun's and bossfight's step kernels and maze's render (M1)
+     from their five sources (nvcc, sm_90a, one compiler process each,
+     started together) and prints their times
      and, per kernel, ptxas's registers, shared memory and spills;
   3. kernels vs plain on random inputs at 4096 envs, all bitwise equal:
      the raw scene kernel (B1) on coinrun's shapes; the stamp-over-frame
@@ -125,9 +126,14 @@ Phases (any failure raises, so the exit code is non-zero and the final
      lane 0 on its goal (+10) and lane 1 at its last step (terminated
      with 0), both holding still on their first step -> 8 steps into a
      uint8 [8, 8192, 64, 64, 3] buffer, checked as in 15, with the CPU
-     re-run and peak device memory; where the time goes, as in 16 (the 4
-     kind blends); then maze hard and memory (the agent-centred camera):
-     256 levels, reset(4096), 2 steps, no kernel, the CPU re-run of 8 envs;
+     re-run and peak device memory, its render M1 launched once a render
+     and no other kernel; M1 against the plain render on the last states
+     (bitwise), timed eagerly and in a graph beside the plain render and
+     its bytes bound (CUDA events); where the time goes, as in 16 (M1,
+     then the plain render's kind field, background, 4 kind blends and
+     rounding); then maze hard and memory (the agent-centred camera): 256
+     levels, reset(4096), 2 steps, M1 once a step in hard mode and never
+     in memory mode, no other kernel, the CPU re-run of 8 envs;
  19. the exact-camera main paths (scene_phases=0) of coinrun, climber,
      caveflyer and jumper: make(game, scene_phases=0) ->
      generate_bank(1024) -> reset(4096) -> the lanes of its default
@@ -148,7 +154,8 @@ Phases (any failure raises, so the exit code is non-zero and the final
      (every buffer field, the final state) and a second replay to the
      first; a rollout of 64 envs on the card equal to the same rollout on
      the CPU; the profiler's count of B1/B3 launches in one replay (8 per
-     kernel group) and of coinrun's step kernel (8); the graph's and the
+     kernel group) and of coinrun's and bossfight's step kernels and
+     maze's render M1 (8 each); the graph's and the
      eager loop's env-steps/s, the capture's seconds and the graph's pool,
      the device's idle share of a replay;
  22. the rollout's graph table (ROADMAP C3): 20 coinrun rollouts at 256
@@ -193,7 +200,7 @@ Phases (any failure raises, so the exit code is non-zero and the final
      jumper, bossfight, chaser, maze's route); the bots' actions and the
      first 8 steps' frames of the n lanes equal the CPU's; B1 and B3
      launch on the games that render with them (the wrappers at capture,
-     the profiler per replay), no kernel for chaser and maze; B1 and B3
+     the profiler per replay), neither of them for chaser and maze; B1 and B3
      bitwise equal to their plain versions on the last render's inputs,
      timed beside their bounds; each game's wall seconds, env-steps/s
      and the device's idle share;
@@ -246,7 +253,8 @@ from procgen2_tpu_torch.games import (bossfight, caveflyer, chaser,  # noqa: E40
                                      climber, coinrun, jumper, maze)
 from procgen2_tpu_torch.physics import bossfight_step, coinrun_step  # noqa: E402
 from procgen2_tpu_torch.render import compositor  # noqa: E402
-from procgen2_tpu_torch.render import scene_kernel, stamp_kernel  # noqa: E402
+from procgen2_tpu_torch.render import (maze_render, scene_kernel,  # noqa: E402
+                                      stamp_kernel)
 from procgen2_tpu_torch.utils import (bank_gather, tree_map,  # noqa: E402
                                       tree_select)
 from benchmark.roofline import stamp_composite  # noqa: E402
@@ -706,9 +714,11 @@ def cpu_rerun(game, bank, actions, obs_buf, states, out, place, lanes,
 
 def build_kernels():
     """Build the kernels from this checkout (the scene and stamp kernels,
-    coinrun's and bossfight's steps), one nvcc process per source, started
-    together; print their times and ptxas registers/spills."""
-    mods = (scene_kernel, stamp_kernel, coinrun_step, bossfight_step)
+    coinrun's and bossfight's steps, maze's render M1), one nvcc process
+    per source, started together; print their times and ptxas
+    registers/spills."""
+    mods = (scene_kernel, stamp_kernel, coinrun_step, bossfight_step,
+            maze_render)
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         recs = list(pool.map(lambda m: m.build(), mods))
     for rec in recs:
@@ -1321,24 +1331,23 @@ def chaser_path(actions):
 
 
 def maze_kind_parts(cfg, gs, device):
-    """The render's parts of a maze state as breakdown entries: the kind
-    field, the background, the four kind blends, and the rounding."""
+    """The render's parts of a maze state as breakdown entries: M1, the
+    whole render in one launch; then the plain render's kind field, the
+    background, the four kind blends, and the rounding."""
     R = maze._render_tensors(cfg.mode, str(device))
     G = maze._kind_field(gs, R)
     img = R["bg_bank"][gs.level.bg_index.long()].to(torch.bfloat16)
-    blend = compositor.blend_kind
 
     def blends():
-        out = blend(img, G == maze.WALL, *R["wall"])
-        out = blend(out, (G == maze.CHEESE) | (G >= maze.MOUSE_ON_CHEESE),
-                    *R["cheese"])
-        out = blend(out, (G == maze.MOUSE) | (G == maze.MOUSE_ON_CHEESE),
-                    *R["mouse"])
-        return blend(out, (G == maze.MOUSE_FLIP)
-                     | (G == maze.MOUSE_FLIP_ON_CHEESE), *R["mouse_flip"])
+        out = img
+        for name, on in maze._LAYERS:
+            out = compositor.blend_kind(out, on(G), *R[name])
+        return out
 
     bf = blends()
     return [
+        ("M1 (maze_render_kernel, the whole render)",
+         lambda: maze.observe_batch(cfg, gs)),
         ("kind field (kind grid + gather)", lambda: maze._kind_field(gs, R)),
         ("background gather (bf16)",
          lambda: R["bg_bank"][gs.level.bg_index.long()].to(torch.bfloat16)),
@@ -1348,10 +1357,54 @@ def maze_kind_parts(cfg, gs, device):
     ]
 
 
+def m1_bound(gs, consts):
+    """(bound_ms, bound_by) of one M1 call on State gs: bytes, the obs
+    written once, each env's grid, positions, facing and background index
+    read once, and the constants (backgrounds, walled backgrounds, kind
+    images, tables) read once."""
+    lv = gs.level
+    n = gs.pos.shape[0]
+    ins = tensor_bytes(lv.grid, lv.goal_pos, gs.pos, gs.face_forward,
+                       lv.bg_index, consts.tables, consts.bg_bank,
+                       consts.walled, consts.kinds, consts.layer_lut)
+    return bound(ins + n * 3 * 64 * 64, 0)
+
+
+def m1_vs_plain(cfg, gs, iters=20):
+    """M1 (`maze.observe_batch` on the card) against the plain render
+    (`maze.observe_batch_reference`) on State gs: the obs bitwise equal
+    (raises otherwise), then the kernel's time eagerly and in a graph, the
+    plain render's, and the bytes bound, by CUDA events. Returns the
+    kernel's JSON entry."""
+    got = maze.observe_batch(cfg, gs)
+    want = maze.observe_batch_reference(cfg, gs)
+    torch.cuda.synchronize()
+    ndiff = int((got != want).sum())
+    if ndiff:
+        raise AssertionError(f"M1 differs from the plain render in {ndiff} "
+                             f"obs bytes")
+    ms = cuda_ms(lambda: maze.observe_batch(cfg, gs), iters)
+    in_graph = graph_ms(lambda: maze.observe_batch(cfg, gs), iters)
+    plain_ms = cuda_ms(lambda: maze.observe_batch_reference(cfg, gs), 3)
+    consts = maze._render_tensors(cfg.mode, str(gs.pos.device))["m1"]
+    bound_ms, bound_by = m1_bound(gs, consts)
+    n = gs.pos.shape[0]
+    log(f"M1 vs the plain render on the main path's last states, {cfg.mode} "
+        f"N={n}: bitwise equal; kernel {ms:.4f} ms eagerly, {in_graph:.4f} "
+        f"ms in a graph, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return dict(name="maze_render", route="cuda",
+                source="procgen2_tpu_torch/render/csrc/maze_render.cu",
+                replaces=None, max_abs_err=0.0, ms=ms, graph_ms=in_graph,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
 def maze_path(dev):
     """Maze's main path at the bench's shape (procgen2_tpu/bench.py:31:
-    easy, 2048 levels, 8192 envs, T = 8), its checks (no kernel launched:
-    its render is a kind field), the CPU re-run, and the breakdown."""
+    easy, 2048 levels, 8192 envs, T = 8), its checks (M1 launched once a
+    render, no other kernel), the CPU re-run, M1 against the plain render
+    on the last states, and the breakdown."""
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     actions = hold_first_action(torch.randint(
@@ -1366,8 +1419,9 @@ def maze_path(dev):
     def place(gs):
         return place_maze_lanes(gs, env.cfg)
 
-    states, out, lanes, _ = drive(env, bank, actions, obs_buf, place,
-                                  silent=KERNEL_WRAPPERS, n_envs=MAZE_ENVS)
+    states, out, lanes, launches = drive(
+        env, bank, actions, obs_buf, place, maze_render.render,
+        silent=KERNEL_WRAPPERS, n_envs=MAZE_ENVS)
     peak = peak_gib()
     rewards, dones = check_outputs(obs_buf, out, (0.0, 10.0), MAZE_ENVS)
     lanes_restarted(states, dones, rewards, lanes, (10.0, 0.0), lambda g, i: (
@@ -1383,16 +1437,18 @@ def maze_path(dev):
     log(f"maze CPU re-run of the first {CPU_ENVS} envs: bank, states, "
         f"rewards, terminations and obs identical at every step "
         f"({int(dones[:, :CPU_ENVS].sum())} auto-resets)")
+    m1 = dict(m1_vs_plain(env.cfg, states[-1].game), launches=launches[0])
     parts = maze_kind_parts(env.cfg, states[-1].game, env.device)
     numbers = breakdown(env, bank, states[-1], actions[-1], obs_buf, parts)
-    return dict(numbers, peak_gib=peak)
+    return dict(numbers, peak_gib=peak, m1=m1)
 
 
 def maze_modes_path(dev):
     """Maze hard (the default Config, 25 x 25) and memory (31 x 31 under
     the agent-centred camera): a 256-level bank, reset(NUM_ENVS), 2 steps
-    with the placed lanes, no kernel launched, and the CPU re-run of the
-    first 8 envs."""
+    with the placed lanes, M1 launched once a step in hard mode and never
+    in memory mode (its plain render), no other kernel, and the CPU re-run
+    of the first 8 envs."""
     g = torch.Generator(device=dev)
     g.manual_seed(4)
     actions = hold_first_action(torch.randint(
@@ -1408,7 +1464,7 @@ def maze_modes_path(dev):
 
         gs, lanes = place(state.game)
         state = dataclasses.replace(state, game=gs)
-        for w in KERNEL_WRAPPERS:
+        for w in KERNEL_WRAPPERS + (maze_render.render,):
             w.launches = 0
         states, out, obs = [], [], torch.empty(
             (2, NUM_ENVS, 64, 64, 3), dtype=torch.uint8, device=env.device)
@@ -1419,14 +1475,19 @@ def maze_modes_path(dev):
             out.append((ts.reward, ts.terminated))
         if any(w.launches for w in KERNEL_WRAPPERS):
             raise AssertionError(f"maze {mode} launched a kernel")
+        m1_want = 0 if env.cfg.agent_centered else 2
+        if maze_render.render.launches != m1_want:
+            raise AssertionError(f"maze {mode} launched M1 "
+                                 f"{maze_render.render.launches} times, "
+                                 f"expected {m1_want}")
         rewards = torch.stack([r for r, _ in out])
         dones = torch.stack([d for _, d in out])
         lanes_restarted(states, dones, rewards, lanes, (10.0, 0.0),
                         lambda g, i: True)
         cpu_rerun("maze", bank, actions, obs, states, out, place, lanes,
                   steps=2, mode=mode)
-        log(f"maze {mode}: 256 levels, {NUM_ENVS} envs, 2 steps, no kernel "
-            f"launched; obs mean {float(obs.float().mean()):.3f}; both "
+        log(f"maze {mode}: 256 levels, {NUM_ENVS} envs, 2 steps, M1 launched "
+            f"{m1_want} times and no other kernel; obs mean {float(obs.float().mean()):.3f}; both "
             f"placed lanes restarted; the CPU re-run of the first "
             f"{CPU_ENVS} envs identical at both steps")
 
@@ -1593,10 +1654,12 @@ KERNEL_OF = {"scene_raw_kernel": scene_kernel.scene_raw,
              "stamp_composite_kernel": stamp_kernel.composite,
              "stamp_sum_kernel": stamp_kernel.stamps}
 ROLLOUT_KERNELS = tuple(KERNEL_OF)
-# the games whose step is one kernel launch, by the name of its __global__
+# the games with a kernel of their own launched once a step (coinrun's
+# and bossfight's step, maze's render M1), by the name of its __global__
 # function: one per step of a replay
 STEP_KERNEL_OF = {"coinrun": "coinrun_step_kernel",
-                  "bossfight": "bossfight_step_kernel"}
+                  "bossfight": "bossfight_step_kernel",
+                  "maze": "maze_render_kernel"}
 ROLLOUT_CPU_ENVS = 64
 
 
@@ -2884,7 +2947,7 @@ def main():
     field["max_abs_err"] = max(field["max_abs_err"], err5_r)
     log(f"chip_smoke total wall time: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [scene, stamp, sums, field, step,
-                                boss_step]}))
+                                boss_step, mz["m1"]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

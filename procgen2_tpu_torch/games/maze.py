@@ -33,6 +33,7 @@ from ..core import spaces
 from ..gen.kruskal import kruskal_maze, masked_uniform_cell
 from ..render import atlas as atlas_lib
 from ..render import compositor as C
+from ..render import maze_render
 from ..utils.consts import const
 from ..utils.tree import key_field
 
@@ -51,6 +52,8 @@ EMPTY, WALL = 0, 1  # tilemap.h Tile_ID: empty=0, wall=1
 # the render's kinds: 0 empty, 1 wall, 2 cheese, 3 mouse, 4 mouse (flipped),
 # 5 mouse on cheese, 6 mouse (flipped) on cheese
 CHEESE, MOUSE, MOUSE_FLIP, MOUSE_ON_CHEESE, MOUSE_FLIP_ON_CHEESE = 2, 3, 4, 5, 6
+# the mouse's kind by flip + 2 * on_cheese (`_augmented`)
+_MOUSE_KINDS = (MOUSE, MOUSE_FLIP, MOUSE_ON_CHEESE, MOUSE_FLIP_ON_CHEESE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,7 +339,8 @@ def _render_tensors(mode: str, device: str):
     (rgb, a) pairs for `compositor.blend_kind`; the fixed camera's
     backgrounds pre-sampled, u8 [B, 3, OBS, OBS]; the selectors as index
     tensors (memory mode: the shared tile offsets, and the backgrounds
-    u8 [B, 3, H, W] for `draw_background_batch`)."""
+    u8 [B, 3, H, W] for `draw_background_batch`); under the fixed camera
+    also the same constants as M1 takes them (`m1`)."""
     atlas, idx, bgs = _assets()
     T = _tables(mode)
     dev = torch.device(device)
@@ -364,7 +368,32 @@ def _render_tensors(mode: str, device: str):
         tx=t["tx"].long().to(dev), ty=t["ty"].long().to(dev),
         bg_bank=torch.clamp(torch.round(bg_bank), 0, 255).to(
             torch.uint8).to(dev))
+    out["m1"] = _m1_consts(out)
     return out
+
+
+def _m1_consts(R):
+    """The plain render's constants as M1 takes them
+    (`render/maze_render.py`): the ty/tx tables, the backgrounds, the
+    obs of the first layer alone over each background (by the plain
+    render's ops), the kind images in `_LAYERS`' order, each layer's
+    predicate as bit L of a table over every int8 kind, and `_augmented`'s
+    kind codes."""
+    dev = R["tx"].device
+    kinds = torch.arange(-128, 128, dtype=torch.int8, device=dev)
+    lut = sum(on(kinds).to(torch.uint8) << L
+              for L, (_, on) in enumerate(_LAYERS))
+    everywhere = torch.ones((), dtype=torch.bool, device=dev)
+    walled = C.blend_kind(R["bg_bank"].to(torch.bfloat16), everywhere,
+                          *R[_LAYERS[0][0]])
+    return maze_render.Consts(
+        tables=torch.stack([R["ty"], R["tx"]]).to(torch.int32),
+        bg_bank=R["bg_bank"],
+        walled=_to_obs(walled),
+        kinds=torch.stack([torch.cat([R[name][0], R[name][1][None]])
+                           for name, _ in _LAYERS]),
+        layer_lut=lut,
+        cheese=CHEESE, mouse=_MOUSE_KINDS)
 
 
 def _augmented(states: State):
@@ -386,15 +415,26 @@ def _augmented(states: State):
     return aug
 
 
+# the kind layers in painter order (maze.py:341-349): each kind image
+# and the kinds of the field it blends over
+_LAYERS = (
+    ("wall", lambda G: G == WALL),
+    ("cheese", lambda G: (G == CHEESE) | (G >= MOUSE_ON_CHEESE)),
+    ("mouse", lambda G: (G == MOUSE) | (G == MOUSE_ON_CHEESE)),
+    ("mouse_flip", lambda G: (G == MOUSE_FLIP) | (G == MOUSE_FLIP_ON_CHEESE)),
+)
+
+
 def _compose(img, G, R):
     """The four kind layers over img bf16 [N, 3, OBS, OBS] by the kind
     field G int8 [N, 1, OBS, OBS], then the obs u8 (maze.py:341-350)."""
-    img = C.blend_kind(img, G == WALL, *R["wall"])
-    img = C.blend_kind(img, (G == CHEESE) | (G >= MOUSE_ON_CHEESE),
-                       *R["cheese"])
-    img = C.blend_kind(img, (G == MOUSE) | (G == MOUSE_ON_CHEESE), *R["mouse"])
-    img = C.blend_kind(img, (G == MOUSE_FLIP) | (G == MOUSE_FLIP_ON_CHEESE),
-                       *R["mouse_flip"])
+    for name, on in _LAYERS:
+        img = C.blend_kind(img, on(G), *R[name])
+    return _to_obs(img)
+
+
+def _to_obs(img):
+    """bf16 frames rounded (half to even), clamped and cast to u8."""
     return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
 
 
@@ -405,13 +445,27 @@ def _kind_field(states: State, R):
 
 
 def observe_batch(cfg: Config, states: State):
-    """Planar uint8 [N, 3, OBS, OBS]. The fixed camera of easy and hard
-    (maze.cpp:397: the zoom fits the whole maze) puts every object on a
-    cell: the mouse spans its cell, and the cheese's rect stays inside
-    its own. So the cheese and mouse are extra tile kinds, and each kind's
-    texel image is the same for every env: the per-env work is the kind
-    grid, its field under the pixels and the background row. Memory mode
-    takes `_observe_batch_memory`."""
+    """Planar uint8 [N, 3, OBS, OBS]. On a CUDA device the fixed camera
+    (easy and hard) is one launch of M1 (`render/maze_render.py`);
+    memory mode and CPU tensors take `observe_batch_reference`, the plain
+    render, which M1 equals bit for bit."""
+    if states.pos.device.type == "cuda" and not cfg.agent_centered:
+        R = _render_tensors(cfg.mode, str(states.pos.device))
+        level = states.level
+        return maze_render.render(level.grid, level.goal_pos, states.pos,
+                                  states.face_forward, level.bg_index,
+                                  R["m1"])
+    return observe_batch_reference(cfg, states)
+
+
+def observe_batch_reference(cfg: Config, states: State):
+    """The plain render, planar uint8 [N, 3, OBS, OBS]. The fixed camera of
+    easy and hard (maze.cpp:397: the zoom fits the whole maze) puts every
+    object on a cell: the mouse spans its cell, and the cheese's rect stays
+    inside its own. So the cheese and mouse are extra tile kinds, and each
+    kind's texel image is the same for every env: the per-env work is the
+    kind grid, its field under the pixels and the background row. Memory
+    mode takes `_observe_batch_memory`."""
     if cfg.agent_centered:
         return _observe_batch_memory(cfg, states)
     R = _render_tensors(cfg.mode, str(states.pos.device))

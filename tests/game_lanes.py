@@ -175,6 +175,23 @@ def place_maze_lanes(gs, cfg):
     return dataclasses.replace(gs, pos=pos, t=t), [0, 1]
 
 
+def place_maze_render_lanes(gs):
+    """Of a maze State, for its render: rows 0 mod 3 with the mouse on its
+    cheese, rows 1 mod 3 on its start cell (a corner of the maze, beside
+    the all-wall margin or on the grid's edge), the rest where they are;
+    rows 0-2 mod 6 facing forward (the flipped mouse), 3-5 back; row i
+    on background i mod 9 (every one where N >= 9)."""
+    from procgen2_tpu_torch.games import maze
+    lv = gs.level
+    i = torch.arange(gs.pos.shape[0], device=gs.pos.device)
+    pos = torch.where((i % 3 == 0)[:, None], lv.goal_pos, gs.pos)
+    pos = torch.where((i % 3 == 1)[:, None], lv.agent_pos, pos)
+    level = dataclasses.replace(lv, bg_index=(i % maze.NUM_BGS).to(
+        torch.int32))
+    return dataclasses.replace(gs, pos=pos, face_forward=i % 6 < 3,
+                               level=level)
+
+
 def hold_first_action(actions, lanes):
     """`actions` [T, N] with the placed lanes' first action 4 (no move)."""
     actions = actions.clone()

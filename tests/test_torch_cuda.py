@@ -26,8 +26,11 @@ easy and hard mode, the crafted lanes of tests/bossfight_lanes.py and its
 crowded rings, and a T = 8 rollout graph against its eager loops;
 bossfight's T = 8 rollout graph in easy mode at 4096 envs, late in its
 episodes and with rings past the render's cull, against the benchmark's
-plain reference on sampled rows; and the render's spans of a profiled
-bossfight step.
+plain reference on sampled rows; the render's spans of a profiled
+bossfight step; and maze's render kernel M1 against the plain render, bit
+for bit: easy and hard mode at 1, 7 and 8192 envs with the mouse on and
+off its cheese facing both ways and on its start cell, every background,
+and its wrapper's refusals.
 
 They skip without a card. This file imports no jax, so it runs on a
 machine without it; there, skip the repo's conftest (which sets jax up):
@@ -45,9 +48,9 @@ import procgen2_tpu_torch as pt
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch import trig
 from procgen2_tpu_torch.games import (bossfight, caveflyer, climber, coinrun,
-                                      jumper)
+                                      jumper, maze)
 from procgen2_tpu_torch.physics import bossfight_step, coinrun_step
-from procgen2_tpu_torch.render import compositor
+from procgen2_tpu_torch.render import compositor, maze_render
 from procgen2_tpu_torch.render import scene_kernel as sk
 from procgen2_tpu_torch.render import stamp_kernel as stk
 from procgen2_tpu_torch.utils import tree_map
@@ -805,8 +808,9 @@ def _kind_field_run(game, dev_name, n, steps, place, **cfg):
     """make(game) on `dev_name` (a bank of n levels, n envs, the lanes
     placed by `place(state, env)`, `steps` steps whose placed lanes first
     hold still), all on the CPU: (bank, states, rewards, frames, lanes,
-    launches of the four kernel wrappers)."""
-    wrappers = (sk.scene_raw, sk.scene, stk.composite, stk.stamps)
+    launches of the four render kernel wrappers and of maze's M1)."""
+    wrappers = (sk.scene_raw, sk.scene, stk.composite, stk.stamps,
+                maze_render.render)
     for w in wrappers:
         w.launches = 0
     env = pt.make(game, device=dev_name, **cfg)
@@ -877,16 +881,17 @@ def test_maze_on_card_matches_cpu(dev, mode):
 
 def test_chaser_and_maze_launch_no_kernel(dev):
     """Neither game's main path reaches a TPU kernel in the JAX package,
-    so neither launches one here: no scene, stamp or stamp-sum kernel on
-    the card over reset and 4 steps (chaser's stamp group is off the
-    kernel path, `compositor.stamp_kernel_ok`)."""
+    so neither launches one of their ports here: no scene, stamp or
+    stamp-sum kernel on the card over reset and 4 steps (chaser's stamp
+    group is off the kernel path, `compositor.stamp_kernel_ok`); maze's
+    render is its own kernel M1, once a render, chaser's plain torch."""
     runs = [_kind_field_run("chaser", "cuda", 64, 4,
                             lambda gs, env: game_lanes.place_chaser_lanes(gs)),
             _kind_field_run("maze", "cuda", 64, 4,
                             lambda gs, env: game_lanes.place_maze_lanes(
                                 gs, env.cfg), mode="easy")]
-    for r in runs:
-        assert r[5] == [0, 0, 0, 0]
+    assert runs[0][5] == [0, 0, 0, 0, 0]
+    assert runs[1][5] == [0, 0, 0, 0, 5]  # reset + 4 steps
 
 
 # ---------------------------------------------------------------------------
@@ -913,7 +918,7 @@ def test_exact_render_on_card_matches_cpu(dev, smoke, game):
     cpu, gpu = (_kind_field_run(game, d, 16, 4, place, scene_phases=0)
                 for d in ("cpu", "cuda"))
     _same_runs(cpu, gpu)
-    assert gpu[5] == [0, 0, per_render * 5, 0]  # reset + 4 steps
+    assert gpu[5] == [0, 0, per_render * 5, 0, 0]  # reset + 4 steps
 
 
 @pytest.mark.parametrize("game", sorted(EXACT_GAMES))
@@ -1360,3 +1365,70 @@ def test_bossfight_render_spans_on_card(dev, monkeypatch):
     monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
     vec.step(state, a)
     torch.cuda.synchronize()
+
+
+# ---- maze's render kernel M1 against the plain render ------------------
+
+@pytest.mark.parametrize("n", [1, 7, 8192])
+@pytest.mark.parametrize("mode", ["easy", "hard"])
+def test_maze_render_kernel_equals_plain_render(dev, mode, n):
+    """`maze.observe_batch` on the card (M1, one launch) against the plain
+    render (`maze.observe_batch_reference`) on the card, bit for bit, at 3
+    and 9 steps in: the mouse on its cheese and off it facing both ways,
+    on its start cell (a corner of the maze, beside the wall margin or on
+    the grid's edge) and where its steps took it, on every background
+    (n >= 9), with `game_lanes.place_maze_render_lanes`."""
+    env = pt.make("maze", mode=mode)
+    bank = env.generate_bank(R.key(3, dev), 200)
+    state, _ = env.reset(bank, R.key(4, dev), n)
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    kinds = set()
+    for i in range(9):
+        a = torch.randint(0, maze.NUM_ACTIONS, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+        state, _ = env.step(bank, state, a, render=False)
+        if i not in (2, 8):
+            continue
+        gs = game_lanes.place_maze_render_lanes(state.game)
+        before = maze_render.render.launches
+        got = maze.observe_batch(env.cfg, gs)
+        assert maze_render.render.launches == before + 1
+        want = maze.observe_batch_reference(env.cfg, gs)
+        assert maze_render.render.launches == before + 1
+        assert torch.equal(got, want), f"{mode}, step {i}"
+        kinds |= set(maze._augmented(gs).unique().tolist())
+    if n >= 9:
+        assert kinds == set(range(7))
+        assert set(gs.level.bg_index.tolist()) == set(range(maze.NUM_BGS))
+
+
+def test_maze_render_kernel_rejects_bad_inputs(dev):
+    """The wrapper refuses state tensors of another dtype, shape or device
+    and constants of another dtype, shape or device or off a 16-byte
+    boundary, before anything launches."""
+    env = pt.make("maze", mode="easy")
+    bank = env.generate_bank(R.key(3, dev), 8)
+    state, _ = env.reset(bank, R.key(4, dev), 8)
+    gs, lv = state.game, state.game.level
+    c = maze._render_tensors("easy", str(dev))["m1"]
+    ok = dict(grid=lv.grid, goal_pos=lv.goal_pos, pos=gs.pos,
+              face_forward=gs.face_forward, bg_index=lv.bg_index, consts=c)
+    assert torch.equal(maze_render.render(**ok),
+                       maze.observe_batch_reference(env.cfg, gs))
+    bad = [("grid", lv.grid.int()), ("grid", lv.grid[:, :, 1:]),
+           ("grid", torch.zeros((8, 65, 65), dtype=torch.int8, device=dev)),
+           ("goal_pos", lv.goal_pos.double()), ("goal_pos", lv.goal_pos.cpu()),
+           ("pos", gs.pos[:4]), ("face_forward", gs.face_forward.int()),
+           ("bg_index", lv.bg_index.long()),
+           ("consts", dataclasses.replace(c, kinds=c.kinds.cpu())),
+           ("consts", dataclasses.replace(c, walled=c.walled[:, :2])),
+           ("consts", dataclasses.replace(c, layer_lut=c.layer_lut[:128])),
+           ("consts", dataclasses.replace(c, bg_bank=torch.empty(
+               c.bg_bank.numel() + 1, dtype=torch.uint8, device=dev)[
+                   1:].view(c.bg_bank.shape)))]
+    before = maze_render.render.launches
+    for name, value in bad:
+        with pytest.raises(ValueError):
+            maze_render.render(**dict(ok, **{name: value}))
+    assert maze_render.render.launches == before

@@ -13,7 +13,12 @@ bitwise: f32 compared as int32 views, everything else equal.
   and 6) and memory mode's camera at t = 0 and t > 0;
 * the render's constant tables (tile, texel, cheese and background
   selectors) against those `compositor._onehot` takes in the JAX
-  package's jitted render, at 64 envs (`jax_capture.onehot_inputs`).
+  package's jitted render, at 64 envs (`jax_capture.onehot_inputs`);
+* what the CPU can hold of M1, the fixed camera's render kernel: the
+  constants its wrapper passes against the plain render's, its
+  arithmetic on them in plain torch against the plain render, the plain
+  render on CPU tensors in every mode (no launch), and the wrapper's
+  refusals.
 """
 import dataclasses
 import functools
@@ -32,6 +37,7 @@ from procgen2_tpu.games import maze as jmaze
 from procgen2_tpu_torch import random as R
 from procgen2_tpu_torch.games import maze as tmaze
 from procgen2_tpu_torch.render import compositor as tC
+from procgen2_tpu_torch.render import maze_render
 from procgen2_tpu_torch.utils import convert
 import render_parity as RP
 from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
@@ -430,3 +436,217 @@ def test_observe_matches_jax_in_mode(mode):
     """Memory mode's camera follows the agent (at the map centre on the
     first frame); easy's is fixed."""
     RP.check_observe("maze", (("mode", mode),), size=64)
+
+
+# ---------------------------------------------------------------------------
+# M1, the fixed camera's render kernel (render/maze_render.py): its
+# constants, its arithmetic on them, and the dispatch, on the CPU (the
+# kernel itself: tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+FIXED = ("easy", "hard")
+# the layers each render kind takes (maze.py's kinds: 0 empty, 1 wall,
+# 2 cheese, 3 mouse, 4 flipped mouse, 5 and 6 those on the cheese)
+KIND_LAYERS = {0: (), 1: ("wall",), 2: ("cheese",), 3: ("mouse",),
+               4: ("mouse_flip",), 5: ("cheese", "mouse"),
+               6: ("cheese", "mouse_flip")}
+
+
+def m1_model(c, grid, goal_pos, pos, face, bg_index):
+    """M1's arithmetic (csrc/maze_render.cu) in plain torch on the
+    constants `c` the wrapper passes: each pixel's kind from the tables,
+    the grid and the kind codes, its layers from bit L of the layer table;
+    a pixel with no layer is its background byte, one with layer 0 alone
+    its byte of `walled`, any other runs its layers alone from the
+    background, each bf16 op rounded."""
+    N, D, _ = grid.shape
+    i32 = torch.int32
+    ty, tx = c.tables.long()
+
+    def cell(v):
+        i = v.to(i32)
+        return torch.where(i < 0, i + D, i).long()
+
+    def at(p):
+        return ((ty[None, :, None] == cell(p[:, 1])[:, None, None])
+                & (tx[None, None, :] == cell(p[:, 0])[:, None, None]))
+
+    on_cheese = ((pos[:, 0].to(i32) == goal_pos[:, 0].to(i32))
+                 & (pos[:, 1].to(i32) == goal_pos[:, 1].to(i32)))
+    mouse = torch.tensor(c.mouse, dtype=torch.int8)[
+        face.long() + 2 * on_cheese.long()]
+    G = grid[:, ty][:, :, tx]
+    G = torch.where(at(goal_pos), torch.tensor(c.cheese, dtype=torch.int8),
+                    G)
+    G = torch.where(at(pos), mouse[:, None, None], G)
+    bits = c.layer_lut.long()[G.long() + 128][:, None]
+    bg = c.bg_bank[bg_index.long()]
+    f = bg.float()
+
+    def rn(x):
+        return x.to(torch.bfloat16).float()
+
+    for L in range(maze_render.LAYERS):
+        k, a = c.kinds[L, :3].float(), c.kinds[L, 3].float()
+        f = torch.where(((bits >> L) & 1).bool(), rn(f + rn(a * rn(k - f))),
+                        f)
+    chain = f.round().clamp(0, 255).to(torch.uint8)
+    return torch.where(bits == 0, bg, torch.where(
+        bits == 1, c.walled[bg_index.long()], chain))
+
+
+def render_lanes(mode, n=18):
+    """A CPU maze State of n envs, 3 steps in, with game_lanes' render
+    lanes: the mouse on its cheese and off it facing both ways, on its
+    start cell, every background."""
+    env = pt.make("maze", device="cpu", mode=mode)
+    bank = env.generate_bank(R.key(0), NUM_LEVELS)
+    st, _ = env.reset(bank, R.key(1), n)
+    g = torch.Generator().manual_seed(2)
+    for _ in range(3):
+        st, _ = env.step(bank, st, torch.randint(
+            0, 15, (n,), generator=g, dtype=torch.int32), render=False)
+    return env.cfg, game_lanes.place_maze_render_lanes(st.game)
+
+
+@pytest.mark.parametrize("mode", FIXED)
+def test_m1_arithmetic_equals_the_plain_render(mode):
+    """M1's arithmetic on the constants the wrapper passes equals the plain
+    render bit for bit, on states with every kind and every background:
+    the tables, kind codes, layer table, kind images and walled
+    backgrounds are the plain render's."""
+    cfg, gs = render_lanes(mode)
+    assert set(tmaze._augmented(gs).unique().tolist()) == set(KIND_LAYERS)
+    assert set(gs.level.bg_index.tolist()) == set(range(tmaze.NUM_BGS))
+    c = tmaze._render_tensors(mode, "cpu")["m1"]
+    lv = gs.level
+    got = m1_model(c, lv.grid, lv.goal_pos, gs.pos, gs.face_forward,
+                   lv.bg_index)
+    assert torch.equal(got, tmaze.observe_batch_reference(cfg, gs))
+
+
+@pytest.mark.parametrize("mode", FIXED)
+def test_m1_constants_are_the_plain_renders(mode):
+    """The constants M1 takes: ty/tx the plain render's selectors; the
+    kind images in `_compose`'s order (wall, cheese, mouse, flipped
+    mouse); bit L of the layer table set for exactly the int8 kinds whose
+    field `_compose`'s layer L blends over (KIND_LAYERS for the render's
+    kinds); the backgrounds the plain render's; `walled` the plain render
+    of an all-wall field over each background."""
+    R = tmaze._render_tensors(mode, "cpu")
+    c = R["m1"]
+    assert torch.equal(c.tables, torch.stack([R["ty"], R["tx"]]).int())
+    order = ("wall", "cheese", "mouse", "mouse_flip")
+    assert tuple(name for name, _ in tmaze._LAYERS) == order
+    for L, name in enumerate(order):
+        rgb, a = R[name]
+        assert torch.equal(c.kinds[L, :3].view(torch.int16),
+                           rgb.view(torch.int16))
+        assert torch.equal(c.kinds[L, 3].view(torch.int16),
+                           a.view(torch.int16))
+    kinds = torch.arange(-128, 128, dtype=torch.int8)
+    for L, (_, on) in enumerate(tmaze._LAYERS):
+        assert torch.equal(((c.layer_lut >> L) & 1).bool(), on(kinds))
+    for k, names in KIND_LAYERS.items():
+        assert {order[L] for L in range(4)
+                if int(c.layer_lut[k + 128]) >> L & 1} == set(names), k
+    assert c.bg_bank is R["bg_bank"]
+    B = tmaze.NUM_BGS
+    walls = torch.full((B, 1, 64, 64), tmaze.WALL, dtype=torch.int8)
+    assert torch.equal(c.walled, tmaze._compose(
+        R["bg_bank"].to(torch.bfloat16), walls, R))
+
+
+@pytest.mark.parametrize("on_cheese", [False, True])
+@pytest.mark.parametrize("flip", [False, True])
+def test_m1_kind_codes_are_augmenteds(flip, on_cheese):
+    """The mouse's kind M1 takes for (flip, on_cheese), mouse[flip + 2 *
+    on_cheese], and the cheese's are those `_augmented` writes on the
+    agent's and the goal's cells."""
+    _, gs = render_lanes("easy", n=1)
+    lv = gs.level
+    pos = lv.goal_pos.clone() if on_cheese else lv.agent_pos.clone()
+    gs = dataclasses.replace(gs, pos=pos,
+                             face_forward=torch.tensor([flip]))
+    c = tmaze._render_tensors("easy", "cpu")["m1"]
+    aug = tmaze._augmented(gs)[0]
+    (gx, gy), (mx, my) = lv.goal_pos[0].int(), pos[0].int()
+    assert int(aug[my, mx]) == c.mouse[int(flip) + 2 * int(on_cheese)]
+    if not on_cheese:
+        assert int(aug[gy, gx]) == c.cheese
+
+
+def test_m1_packs_negative_kinds_as_int8_bytes():
+    assert maze_render.pack_kinds((-1, 0, 0, -128)) == -0x7fffff01
+    assert maze_render.pack_kinds((3, 4, 5, 6)) == 0x06050403
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_cpu_tensors_take_the_plain_render(mode):
+    """On the CPU `observe_batch` is the plain render in every mode, and
+    neither it nor `Environment.step` launches M1."""
+    env = pt.make("maze", device="cpu", mode=mode)
+    bank = env.generate_bank(R.key(0), 4)
+    st, _ = env.reset(bank, R.key(1), 4)
+    before = maze_render.render.launches
+    got = tmaze.observe_batch(env.cfg, st.game)
+    env.step(bank, st, torch.zeros(4, dtype=torch.int32))
+    assert maze_render.render.launches == before
+    assert torch.equal(got, tmaze.observe_batch_reference(env.cfg, st.game))
+
+
+def _wrapper_args(gs, c):
+    lv = gs.level
+    return dict(grid=lv.grid, goal_pos=lv.goal_pos, pos=gs.pos,
+                face_forward=gs.face_forward, bg_index=lv.bg_index,
+                consts=c)
+
+
+BAD_ARGS = {
+    "grid int32": ("grid", lambda x: x.int()),
+    "grid not square": ("grid", lambda x: x[:, :, :-1]),
+    "pos f64": ("pos", lambda x: x.double()),
+    "pos [N, 3]": ("pos", lambda x: torch.cat([x, x[:, :1]], 1)),
+    "goal_pos [N - 1, 2]": ("goal_pos", lambda x: x[1:]),
+    "face_forward u8": ("face_forward", lambda x: x.to(torch.uint8)),
+    "bg_index int64": ("bg_index", lambda x: x.long()),
+    "on the CPU": (None, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_ARGS))
+def test_m1_wrapper_rejects_bad_arguments(case):
+    """The wrapper refuses, before building anything, a state tensor of
+    another dtype or shape, and tensors on the CPU."""
+    _, gs = render_lanes("easy", n=4)
+    args = _wrapper_args(gs, tmaze._render_tensors("easy", "cpu")["m1"])
+    name, bad = BAD_ARGS[case]
+    if name is not None:
+        args[name] = bad(args[name])
+    with pytest.raises(ValueError):
+        maze_render.render(**args)
+
+
+BAD_CONSTS = {
+    "kinds f32": lambda c: dataclasses.replace(c, kinds=c.kinds.float()),
+    "tables [2, 63]": lambda c: dataclasses.replace(
+        c, tables=c.tables[:, 1:].contiguous()),
+    "walled [8, ...]": lambda c: dataclasses.replace(c, walled=c.walled[1:]),
+    "layer_lut int8": lambda c: dataclasses.replace(
+        c, layer_lut=c.layer_lut.to(torch.int8)),
+    "kinds off a 16-byte boundary": lambda c: dataclasses.replace(
+        c, kinds=torch.empty(c.kinds.numel() + 1, dtype=torch.bfloat16)[
+            1:].view(c.kinds.shape)),
+    "mouse kind 200": lambda c: dataclasses.replace(c, mouse=(3, 4, 5, 200)),
+    "three mouse kinds": lambda c: dataclasses.replace(c, mouse=(3, 4, 5)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_CONSTS))
+def test_m1_constants_check_refuses(case):
+    """`check_consts` refuses constants of another dtype or shape, off a
+    16-byte boundary, or with kind codes that are not int8."""
+    good = tmaze._render_tensors("easy", "cpu")["m1"]
+    maze_render.check_consts(good, torch.device("cpu"))
+    with pytest.raises(ValueError):
+        maze_render.check_consts(BAD_CONSTS[case](good), torch.device("cpu"))
